@@ -16,3 +16,8 @@ jax.config.update("jax_platforms", "cpu")
 assert jax.default_backend() == "cpu", jax.default_backend()
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card with CUDA; skips where torch has none")

@@ -1,0 +1,117 @@
+"""The port on the card: kernel B1 against its plain version, and an env
+step on the card (kernels) against the same step on the CPU (plain
+versions).  Every test here needs an NVIDIA card and skips without one.
+
+This file imports neither JAX nor the JAX package, so that it also runs
+where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from legged_tracking_torch.config import Cfg, config_go1
+from legged_tracking_torch.envs import LeggedEnv
+from legged_tracking_torch.terrain import heightfield as hf
+from legged_tracking_torch.terrain import scan
+from legged_tracking_torch.terrain.tunnel import build_terrain
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA (a CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def tunnel_cfg(num_envs, tiles):
+    cfg = config_go1(Cfg())
+    cfg.env.num_envs = num_envs
+    t = cfg.terrain
+    t.mesh_type, t.terrain_type = "trimesh", "single_path"
+    t.num_rows = t.num_cols = tiles
+    t.terrain_length, t.terrain_width = 4.0, 2.0
+    t.terrain_ratio_x, t.terrain_ratio_y = 0.9, 0.5
+    t.ceiling_height, t.start_loc = 0.8, 0.32
+    t.measure_front_half = True
+    t.measured_points_x = np.linspace(-1, 1, 21)
+    t.measured_points_y = np.linspace(-0.5, 0.5, 11)
+    cfg.env.command_type = "xy"
+    cfg.env.episode_length_s = 0.06        # 3-step episodes: auto-resets run
+    cfg.control.control_type = "actuator_net"
+    cfg.commands.traj_function = "fixed_target"
+    cfg.commands.traj_length = 1
+    return cfg
+
+
+@pytest.mark.cuda
+def test_scan_kernel_matches_plain_on_card(cuda_device):
+    """Kernel B1 == its plain version on the card, bitwise (atol 0), with
+    bases on the tiles, on cell boundaries and 10 m off the tiles."""
+    n = 3 * 256
+    tt = build_terrain(tunnel_cfg(n, 8), n, seed=1, device=cuda_device)
+    table = hf.bf16_table(tt)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    base = tt.env_origin[:, :2].clone()
+    base[:256] += torch.rand(256, 2, generator=g, device=cuda_device) - 0.5
+    base[512:] += 10.0
+    pitch = torch.rand(n, generator=g, device=cuda_device) - 0.5
+    pitch[256:512] = 0.0
+    cam = torch.stack([0.12 * torch.cos(pitch), torch.zeros_like(pitch)], -1)
+    frames = torch.stack([base, cam, tt.env_terrain_origin[:, :2]], 1).contiguous()
+    gx, gy = np.meshgrid(np.linspace(-1, 1, 21), np.linspace(-0.5, 0.5, 11), indexing="ij")
+    grid = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32),
+                           device=cuda_device)
+    args = (table, tt.env_tile, frames, grid, tt.horizontal_scale)
+    before = scan.scan_heights.launches
+    out = scan.scan_heights(*args)
+    torch.cuda.synchronize()
+    assert scan.scan_heights.launches == before + 1
+    assert torch.equal(out, scan.scan_heights_reference(*args))
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    assert torch.equal(out.cpu(), scan.scan_heights_reference(*cpu_args))
+    with pytest.raises(ValueError):
+        scan.scan_heights(table.float(), *args[1:])      # the kernel takes bf16 only
+
+
+@pytest.mark.cuda
+def test_env_steps_on_card_match_cpu(cuda_device):
+    """Five steps of 8 envs, with auto-resets, from the same draws: the card
+    (kernel B1, cuBLAS products) against the CPU (plain versions).  The
+    float32 sums run in another order; the limits are those of the
+    reference phase of chip_smoke.py, 5 to 20 times the errors read on an
+    H100; dones are exact."""
+    n = 8
+    cpu = LeggedEnv(tunnel_cfg(n, 2), seed=3, device="cpu")
+    card = LeggedEnv(tunnel_cfg(n, 2), seed=3, device=cuda_device)
+    draws = []
+    cpu_draw = cpu.draw
+
+    def record(tag, shape, lo, hi, integer=False):
+        draws.append(cpu_draw(tag, shape, lo, hi, integer))
+        return draws[-1]
+
+    cpu.draw = record
+    replay = iter(draws)
+    card.draw = lambda tag, shape, lo, hi, integer=False: next(replay).to(cuda_device)
+    s_cpu = cpu.reset_fn(True)
+    obs_cpu = cpu.observe(s_cpu)["obs"]
+    outs = []
+    acts = [0.3 * torch.sin(0.1 * i + torch.arange(n * 12, dtype=torch.float32)).reshape(n, 12)
+            for i in range(5)]
+    for a in acts:
+        s_cpu, o = cpu.step_fn(s_cpu, a)
+        outs.append((s_cpu.phys.base_pos, o))
+    s = card.reset_fn(True)
+    launches = scan.scan_heights.launches
+    # the same reset state; elementwise float32 only
+    torch.testing.assert_close(card.observe(s)["obs"].cpu(), obs_cpu, rtol=0, atol=1e-6)
+    for a, (bp, o_cpu) in zip(acts, outs):
+        s, o = card.step_fn(s, a.to(cuda_device))
+        assert torch.equal(o.done.cpu(), o_cpu.done)
+        torch.testing.assert_close(s.phys.base_pos.cpu(), bp, rtol=0, atol=1e-5)
+        torch.testing.assert_close(o.obs.cpu(), o_cpu.obs, rtol=0, atol=5e-4)
+        torch.testing.assert_close(o.rew.cpu(), o_cpu.rew, rtol=0, atol=1e-6)
+    assert scan.scan_heights.launches == launches + 1 + len(acts)

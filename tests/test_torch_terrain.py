@@ -1,0 +1,180 @@
+"""Parity of the port's terrain pieces with the JAX package on the CPU.
+
+- the tunnel builder, bitwise;
+- the contact sampler (direct gather) against ``sample_patch_bilinear`` on
+  the granule window, bitwise;
+- kernel B1's plain version against the Pallas kernel in interpret mode and
+  against the XLA patch path, bitwise, off-tile clamps included.
+
+Kernel B1 itself is held to its plain version on the card by
+tests/test_torch_cuda.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from legged_tracking_torch.config import Cfg as TCfg
+from legged_tracking_torch.config import config_go1 as t_config_go1
+from legged_tracking_torch.terrain import heightfield as t_hf
+from legged_tracking_torch.terrain import scan as t_scan
+from legged_tracking_torch.terrain.tunnel import build_terrain as t_build_terrain
+from legged_tracking_tpu.config import Cfg, config_go1
+from legged_tracking_tpu.terrain import heightfield as j_hf
+from legged_tracking_tpu.terrain.pallas_scan import scan_heights_pallas
+from legged_tracking_tpu.terrain.tunnel import build_terrain
+
+
+def _cfg(cfg_cls, go1, terrain_type, rows=2, cols=2):
+    cfg = go1(cfg_cls())
+    cfg.terrain.mesh_type = "trimesh"
+    cfg.terrain.terrain_type = terrain_type
+    cfg.terrain.num_rows = rows
+    cfg.terrain.num_cols = cols
+    cfg.terrain.terrain_length = 4.0
+    cfg.terrain.terrain_width = 2.0
+    cfg.terrain.terrain_ratio_x = 0.9
+    cfg.terrain.terrain_ratio_y = 0.5
+    cfg.terrain.ceiling_height = 0.8
+    cfg.terrain.start_loc = 0.32
+    return cfg
+
+
+N = 8
+
+
+@pytest.fixture(scope="module")
+def terrains():
+    """The same single_path world built by both packages (8 envs, 2x2 tiles)."""
+    jt = build_terrain(_cfg(Cfg, config_go1, "single_path"), N, seed=3)
+    tt = t_build_terrain(_cfg(TCfg, t_config_go1, "single_path"), N, seed=3, device="cpu")
+    return jt, tt
+
+
+@pytest.mark.parametrize("terrain_type", ["single_path", "narrow_path", "random_pyramid",
+                                          "random"])
+def test_tunnel_builder_bitwise(terrain_type):
+    jt = build_terrain(_cfg(Cfg, config_go1, terrain_type), N, seed=5)
+    tt = t_build_terrain(_cfg(TCfg, t_config_go1, terrain_type), N, seed=5, device="cpu")
+    for name in ("tiles", "env_tile", "env_origin", "env_terrain_origin"):
+        a, b = np.asarray(getattr(jt, name)), getattr(tt, name).numpy()
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    assert (tt.horizontal_scale, tt.is_plane, tt.ceiling_top) == \
+        (jt.horizontal_scale, jt.is_plane, jt.ceiling_top)
+
+
+def test_bf16_table_rounds_like_jax(terrains):
+    jt, tt = terrains
+    # tiles + an odd-ulp offset, so that round-to-nearest-even matters
+    vals = np.asarray(jt.tiles) + np.float32(2.0 ** -10)
+    a = np.asarray(jnp.asarray(vals).astype(jnp.bfloat16).astype(jnp.float32))
+    b = torch.as_tensor(vals).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("px,py", [(24, 16), (32, 32)])
+def test_contact_sampler_matches_patch_bilinear(terrains, px, py):
+    """The direct gather reproduces sample_patch_bilinear on the granule
+    window bit for bit (atol 0): same clamps, same bf16 roundings, and each
+    f32 sum adds at most two exact products of bf16 values."""
+    jt, tt = terrains
+    rng = np.random.RandomState(11)
+    base = np.asarray(jt.env_origin)[:, :2] + rng.uniform(-0.3, 0.3, (N, 2))
+    base = base.astype(np.float32)
+    # in-window points, points past the window edge (window clamp) and
+    # points off the tile (tile clamp)
+    pts = np.concatenate([base[:, None] + rng.uniform(-0.5, 0.5, (N, 40, 2)),
+                          base[:, None] + rng.uniform(-1.5, 1.5, (N, 16, 2)),
+                          base[:, None] + rng.uniform(-9.0, 9.0, (N, 8, 2))],
+                         axis=1).astype(np.float32)
+    th, tw = jt.tiles.shape[2], jt.tiles.shape[3]
+
+    @jax.jit       # as the JAX env runs it: "/ hs" compiles to "* (1 / hs)"
+    def ref(base, pts):
+        patch, xs, ys = j_hf.extract_patches_batched_granule(
+            jt, jt.env_tile, jt.env_terrain_origin, base, px, py)
+        return xs, ys, patch, jax.vmap(
+            j_hf.sample_patch_bilinear, in_axes=(0, 0, 0, None, None, None, 0, 0))(
+            patch, xs, ys, jt.horizontal_scale, th, tw, jt.env_terrain_origin, pts)
+
+    xs, ys, patch, (ref_h, ref_g) = ref(jnp.asarray(base), jnp.asarray(pts))
+
+    txs, tys, PX, PY = t_hf.contact_window(tt, torch.as_tensor(base), px, py)
+    np.testing.assert_array_equal(txs.numpy(), np.asarray(xs))
+    np.testing.assert_array_equal(tys.numpy(), np.asarray(ys))
+    assert (PX, PY) == tuple(patch.shape[2:])
+    h, g = t_hf.sample_window_bilinear(t_hf.bf16_table(tt), tt.env_tile, txs, tys, PX, PY,
+                                       tt.horizontal_scale, tt.env_terrain_origin,
+                                       torch.as_tensor(pts))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(ref_h))
+    np.testing.assert_array_equal(g.numpy(), np.asarray(ref_g))
+
+
+def _grid():
+    gx, gy = np.meshgrid(np.linspace(-1, 1, 21), np.linspace(-0.5, 0.5, 11), indexing="ij")
+    return np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+
+
+def _frames(base, cam_x, origin):
+    cam = np.stack([cam_x, np.zeros_like(cam_x)], -1)
+    return np.stack([base, cam, origin[:, :2]], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["on_tile", "grid_aligned", "off_tile"])
+def test_scan_plain_matches_pallas_and_xla(terrains, case):
+    """B1's plain version == scan_heights_pallas (interpret mode) == the XLA
+    patch path of the JAX env, bitwise (atol 0): at random bases with a
+    camera shift; at the spawn bases, where every scan point lies on a cell
+    boundary and only "* (1 / hs)", as XLA compiles the JAX "/ hs", picks
+    the JAX cell (a true division flips cells by up to 0.1 m); and at bases
+    10 m past the tiles, where every point clamps to the edge cell."""
+    jt, tt = terrains
+    rng = np.random.RandomState(7)
+    base = np.asarray(jt.env_origin)[:, :2]
+    cam_x = np.full(N, 0.12, np.float32)
+    if case != "grid_aligned":
+        base = base + rng.uniform(-0.2, 0.2, (N, 2)) + (10.0 if case == "off_tile" else 0.0)
+        cam_x = (0.12 * np.cos(rng.uniform(-0.3, 0.3, N))).astype(np.float32)
+    frames = _frames(base.astype(np.float32), cam_x, np.asarray(jt.env_terrain_origin))
+    grid = _grid()
+
+    ref = np.asarray(scan_heights_pallas(jt.tiles, jt.env_tile, jnp.asarray(frames),
+                                         jnp.asarray(grid), jt.horizontal_scale,
+                                         interpret=True))
+    out = t_scan.scan_heights(t_hf.bf16_table(tt), tt.env_tile, torch.as_tensor(frames),
+                              torch.as_tensor(grid), tt.horizontal_scale)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+    # the XLA patch path of the JAX env (_get_heights with fused sampling)
+    th, tw = jt.tiles.shape[2], jt.tiles.shape[3]
+
+    @jax.jit
+    def xla(frames, grid):
+        pts = (grid[None] + frames[:, None, 0]) + frames[:, None, 1]
+        pb, xs, ys = j_hf.extract_patches_batched(jt, jt.env_tile, jt.env_terrain_origin,
+                                                  frames[:, 0], 64, 40)
+        return jax.vmap(j_hf.sample_patch_nearest_fused,
+                        in_axes=(0, 0, 0, None, None, None, 0, 0))(
+            j_hf.transpose_patch(pb), xs, ys, jt.horizontal_scale, th, tw,
+            jt.env_terrain_origin, pts)
+
+    h = np.asarray(xla(jnp.asarray(frames), jnp.asarray(grid)))
+    np.testing.assert_array_equal(out.numpy(), np.moveaxis(h, -1, 1))
+    if case == "off_tile":
+        edge = torch.as_tensor(np.array(jt.tiles)).to(torch.bfloat16).float()[
+            tt.env_tile.long()][:, :, -2, -2]
+        np.testing.assert_array_equal(out.numpy(), edge[:, :, None].expand_as(out).numpy())
+
+
+def test_scan_wrapper_on_cpu_runs_plain_version(terrains):
+    """On a CPU tensor the wrapper runs the plain version and launches
+    nothing; the launch count moves only on the card."""
+    _, tt = terrains
+    before = t_scan.scan_heights.launches
+    frames = torch.zeros(N, 3, 2)
+    t_scan.scan_heights(t_hf.bf16_table(tt), tt.env_tile, frames, torch.as_tensor(_grid()),
+                        tt.horizontal_scale)
+    assert t_scan.scan_heights.launches == before

@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
 2. kernels: holds each kernel against its plain PyTorch version on the card
    at the shapes the main path gives it (the bench terrain, 4096 envs, the
    231-point scan grid; bases on the tiles, on cell boundaries and 10 m off
-   the tiles), atol 0, and times both with CUDA events.
+   the tiles), atol 0, and times both with CUDA events, beside two floors
+   (the least kernel, ``torch.cuda._sleep(1)``, and a ``fill_`` of the
+   output) and the kernel at half and twice its chosen envs per block.
 3. reference: steps a small env on the CPU (plain versions) and on the card
    (kernels) from the same state with the same random draws and holds the
    card's observations, rewards and base positions to the CPU's, within
@@ -124,17 +126,22 @@ def cuda_ms(fn, iters: int = 100, reps: int = 7) -> tuple[float, float]:
         torch.cuda.synchronize()
         call.append((time.perf_counter() - t0) * 1e3 / iters)
 
-        slept, start, end = event(), event(), event()
-        slept.record()
-        torch.cuda._sleep(int(3 * call[-1] * iters / ms_per_cycle))
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        queued = time.perf_counter() - t0
-        end.record()
-        end.synchronize()
-        if queued * 1e3 >= slept.elapsed_time(start):
+        # a host stall while queueing (the machine's cores are shared) can
+        # outlast the sleep; such a run is repeated with a longer sleep
+        for attempt in range(4):
+            slept, start, end = event(), event(), event()
+            slept.record()
+            torch.cuda._sleep(int(3 * 4 ** attempt * call[-1] * iters / ms_per_cycle))
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            queued = time.perf_counter() - t0
+            end.record()
+            end.synchronize()
+            if queued * 1e3 < slept.elapsed_time(start):
+                break
+        else:
             raise RuntimeError(f"the host took {queued * 1e3:.3f} ms to queue {iters} calls, "
                                f"longer than the device slept "
                                f"({slept.elapsed_time(start):.3f} ms)")
@@ -193,10 +200,25 @@ def phase_kernels(dev, card_line: str):
                              f"{err_cpu} vs the CPU")
     ms, call_ms = cuda_ms(lambda: scan.scan_heights(*args))
     plain_ms, plain_call_ms = cuda_ms(lambda: scan.scan_heights_reference(*args), iters=20)
+    # floors, timed alike: the least kernel the card runs, and one PyTorch
+    # fill of a tensor of the output's size (writing the output alone)
+    launch_floor_ms, _ = cuda_ms(lambda: torch.cuda._sleep(1))
+    write_floor_ms, _ = cuda_ms(lambda: out.fill_(0.0))
+
+    # the chosen launch shape beside envs per block halved and doubled,
+    # each held bitwise to the plain version
+    N, P = frames.shape[0], grid.shape[0]
+    chosen = scan.launch_shape(N, P, torch.cuda.get_device_properties(dev).multi_processor_count)
+    shapes = []
+    for E in sorted({max(2, chosen[0] // 2 // 2 * 2), chosen[0], 2 * chosen[0]}):
+        shape = (E, -(-N // E), scan.staging_bytes(E, P))
+        if not torch.equal(scan._launch(*args, shape), ref):
+            raise AssertionError(f"scan_heights: launch shape {shape} disagrees with plain")
+        shapes.append({"E": E, "blocks": shape[1], "smem": shape[2],
+                       "ms": cuda_ms(lambda: scan._launch(*args, shape))[0]})
 
     # least work: each input read once, the output written once; of the
     # table, the cells this run's points touch (both layers)
-    N, P = frames.shape[0], grid.shape[0]
     L = table.shape[1]
     touched = int(torch.unique(scan.scan_cells(*args)).numel())
     nbytes = (N * 2 * P * 4 + N * 3 * 2 * 4 + N * 4 + P * 2 * 4 + touched * L * 2)
@@ -214,7 +236,11 @@ def phase_kernels(dev, card_line: str):
           "max_abs_err_vs_cpu": err_cpu, "ms": ms, "plain_ms": plain_ms,
           "call_ms": call_ms, "plain_call_ms": plain_call_ms,
           "bytes": nbytes, "table_cells_touched": touched, "ops": ops,
-          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+          "bound_share": row["bound_ms"] / ms, "launch_floor_ms": launch_floor_ms,
+          "write_floor_ms": write_floor_ms,
+          "launch_shape": dict(zip(("E", "blocks", "smem"), chosen)),
+          "launch_shapes": shapes, "library_ms": None})
     return [row]
 
 

@@ -17,6 +17,7 @@ bf16 values, so the result equals the JAX CPU result bit for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +65,7 @@ def bf16_table(terrain: TerrainArrays) -> torch.Tensor:
     return terrain.tiles.to(torch.bfloat16).contiguous()
 
 
+@functools.lru_cache(maxsize=64)
 def inv_hs(hs: float) -> float:
     """The float32 reciprocal of the cell size (20.0 at hs = 0.05)."""
     return float(np.float32(1.0) / np.float32(hs))

@@ -1,6 +1,7 @@
-"""The port on the card: kernel B1 against its plain version, and an env
-step on the card (kernels) against the same step on the CPU (plain
-versions).  Every test here needs an NVIDIA card and skips without one.
+"""The port on the card: kernel B1 against its plain version (at the bench
+grid, and across the env and point counts where its blocking and staging
+change), and an env step on the card (kernels) against the same step on
+the CPU (plain versions).  Every test here needs an NVIDIA card and skips without one.
 
 This file imports neither JAX nor the JAX package, so that it also runs
 where only PyTorch is installed:
@@ -74,6 +75,63 @@ def test_scan_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(out.cpu(), scan.scan_heights_reference(*cpu_args))
     with pytest.raises(ValueError):
         scan.scan_heights(table.float(), *args[1:])      # the kernel takes bf16 only
+
+
+# scan grids of P points, each spaced 0.1 m so that spawn bases put every
+# point on a cell boundary; 33x41 = 1353 points stage 86.6 KB at 8 envs a
+# block, past the 48 KB a block gets without opting in
+SWEEP_GRIDS = {1: ([0.0], [0.0]),
+               33: (np.linspace(-0.1, 0.1, 3), np.linspace(-0.5, 0.5, 11)),
+               231: (np.linspace(-1, 1, 21), np.linspace(-0.5, 0.5, 11)),
+               1353: (np.linspace(-1.6, 1.6, 33), np.linspace(-2, 2, 41))}
+SWEEP_ENVS = 4099
+
+
+@pytest.fixture(scope="module")
+def sweep_world():
+    """A world of 8x8 tiles with room for SWEEP_ENVS envs (build_terrain
+    takes a multiple of the 64 tiles' count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA (a CUDA kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    n = -(-SWEEP_ENVS // 64) * 64
+    tt = build_terrain(tunnel_cfg(n, 8), n, seed=2, device=dev)
+    return tt, hf.bf16_table(tt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["on_tile", "grid_aligned", "off_tile"])
+@pytest.mark.parametrize("P", sorted(SWEEP_GRIDS))
+@pytest.mark.parametrize("N", [1, 7, 8, 9, SWEEP_ENVS])
+def test_scan_kernel_blocking_bitwise(sweep_world, N, P, case):
+    """Kernel B1 == its plain version, bitwise, for env counts that fill
+    blocks of E envs or leave a tail block (odd N included), and grids from
+    one point to one whose staging needs more than 48 KB of shared memory;
+    bases on the tiles, at the spawn points (cell boundaries) and 10 m off
+    the tiles."""
+    tt, table = sweep_world
+    dev = table.device
+    rng = np.random.RandomState(N * 10_000 + P)
+    base = tt.env_origin[:N, :2].cpu().numpy()
+    pitch = np.zeros(N, np.float32)
+    if case != "grid_aligned":
+        base = base + rng.uniform(-0.5, 0.5, (N, 2)) + (10.0 if case == "off_tile" else 0.0)
+        pitch = rng.uniform(-0.5, 0.5, N)
+    cam = np.stack([0.12 * np.cos(pitch), np.zeros(N)], -1)
+    frames = torch.as_tensor(
+        np.stack([base, cam, tt.env_terrain_origin[:N, :2].cpu().numpy()], 1)
+        .astype(np.float32), device=dev)
+    gx, gy = np.meshgrid(*SWEEP_GRIDS[P], indexing="ij")
+    grid = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32),
+                           device=dev)
+    args = (table, tt.env_tile[:N].contiguous(), frames, grid, tt.horizontal_scale)
+    before = scan.scan_heights.launches
+    out = scan.scan_heights(*args)
+    torch.cuda.synchronize()
+    assert scan.scan_heights.launches == before + 1
+    assert torch.equal(out, scan.scan_heights_reference(*args))
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    assert torch.equal(out.cpu(), scan.scan_heights_reference(*cpu_args))
 
 
 @pytest.mark.cuda

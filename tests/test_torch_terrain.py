@@ -4,7 +4,8 @@
 - the contact sampler (direct gather) against ``sample_patch_bilinear`` on
   the granule window, bitwise;
 - kernel B1's plain version against the Pallas kernel in interpret mode and
-  against the XLA patch path, bitwise, off-tile clamps included.
+  against the XLA patch path, bitwise, off-tile clamps included;
+- kernel B1's launch shape (envs per block, blocks, shared memory).
 
 Kernel B1 itself is held to its plain version on the card by
 tests/test_torch_cuda.py.
@@ -15,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from legged_tracking_torch.config import Cfg as TCfg
 from legged_tracking_torch.config import config_go1 as t_config_go1
@@ -178,3 +181,50 @@ def test_scan_wrapper_on_cpu_runs_plain_version(terrains):
     t_scan.scan_heights(t_hf.bf16_table(tt), tt.env_tile, frames, torch.as_tensor(_grid()),
                         tt.horizontal_scale)
     assert t_scan.scan_heights.launches == before
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(N=st.integers(1, 2_000_000), P=st.integers(1, 9_682), sm=st.integers(1, 200))
+def test_scan_launch_shape_properties(N, P, sm):
+    """Kernel B1's launch shape: E even, so that each block's output span is
+    a multiple of 16 bytes at a 16-byte-aligned offset (the bulk store),
+    and at most one env per thread; the staging fits a block; the blocks
+    cover the N envs exactly once; one wave whenever shared memory and the
+    cap on E allow it; no smaller E gives one wave."""
+    E, blocks, smem = t_scan.launch_shape(N, P, sm)
+    assert 2 <= E <= t_scan.THREADS and E % 2 == 0
+    assert (8 * E * P) % 16 == 0 and (8 * E * P * (blocks - 1)) % 16 == 0
+    assert smem == t_scan.staging_bytes(E, P) <= t_scan.SMEM_BLOCK
+    assert (blocks - 1) * E < N <= blocks * E
+    wave = sm * t_scan.RESIDENT
+    fits = lambda e: t_scan.RESIDENT * (t_scan.staging_bytes(e, P) + t_scan.SMEM_RESERVED) \
+        <= t_scan.SMEM_SM
+    assert E == 2 or fits(E)
+    assert blocks <= wave or E == t_scan.THREADS or not fits(E + 2)
+    assert E == 2 or -(-N // (E - 2)) > wave
+
+
+@pytest.mark.parametrize("N,P,sm,shape", [
+    (4096, 231, 132, (8, 512, 16_888)),     # the bench: one wave of 512 blocks
+    (4099, 1353, 132, (4, 1025, 54_248)),   # a 33x41 grid: past 48 KB, E cut to 4
+    (1, 1, 132, (2, 1, 88)),                # one env: a tail block
+])
+def test_scan_launch_shape_cases(N, P, sm, shape):
+    assert t_scan.launch_shape(N, P, sm) == shape
+
+
+def test_scan_launch_shape_refuses_grids_past_shared_memory():
+    assert t_scan.staging_bytes(2, 9_682) <= t_scan.SMEM_BLOCK < t_scan.staging_bytes(2, 9_683)
+    t_scan.launch_shape(8, 9_682, 132)
+    with pytest.raises(ValueError):
+        t_scan.launch_shape(8, 9_683, 132)
+
+
+def test_scan_wrapper_refuses_other_devices():
+    """Neither a CPU nor a CUDA tensor: the wrapper raises, it does not
+    fall back to the plain version."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError):
+        t_scan.scan_heights(torch.zeros(2, 2, 4, 4, dtype=torch.bfloat16, **meta),
+                            torch.zeros(3, dtype=torch.int32, **meta),
+                            torch.zeros(3, 3, 2, **meta), torch.zeros(5, 2, **meta), 0.05)

@@ -16,11 +16,25 @@ Phases, each printing one JSON line:
    (kernels) from the same state with the same random draws and holds the
    card's observations, rewards and base positions to the CPU's, within
    limits of 5 to 20 times the float32-reordering errors read on an H100.
-4. rollout: the main path.  The bench configuration (``bench.py:build``)
-   at 4096 envs with the default CSE actor-critic: reset, observe, then two
-   24-step ``PPO.rollout``s, the second timed.  Checks that obs, rewards and
-   values are finite and of the expected shapes, and that every kernel was
-   launched on this path (the scan: once per step, once at observe).
+4. rollout: the acting half of the main path.  The bench configuration
+   (``bench.py:build``) at 4096 envs with the default CSE actor-critic:
+   reset, observe, then two 24-step ``PPO.rollout``s, the second timed.
+   Checks that obs, rewards and values are finite and of the expected
+   shapes, and that every kernel was launched on this path (the scan: once
+   per step, once at observe).
+5. update-reference: one ``train_iteration`` (rollout, GAE, 5 x 4
+   minibatches) of 8 envs on the card and on the CPU from the same state,
+   parameters, env draws, action noise and permutation; the card's
+   parameters, Adam moments, learning rate and losses are held to the
+   CPU's within limits of 5 to 20 times the errors read on an H100.
+6. train: the main path.  The bench configuration at 4096 envs trained by
+   the port's ``Runner.learn`` for 4 iterations into a temporary logdir.
+   Checks finite metrics, parameters that moved, the scan launched 24
+   times an iteration and once at the Runner's observe, metrics.jsonl, a
+   checkpoint that loads back and policy.npz; prints train env-steps/s
+   over the iterations after the first (host clock, each iteration between
+   two synchronizes), their rollout/update split (CUDA events, no barrier
+   inside an iteration) and the peak memory.
 
 Then the kernel table as one JSON line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.  The
@@ -345,7 +359,7 @@ def phase_rollout(dev, card_line: str, profile_dir: str | None):
         before = scan.scan_heights.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, obs, traj, metrics = alg.rollout(state, obs)
+        state, obs, traj, metrics, _ = alg.rollout(state, obs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         per_rollout.append(scan.scan_heights.launches - before)
@@ -368,7 +382,7 @@ def phase_rollout(dev, card_line: str, profile_dir: str | None):
         raise AssertionError("last observations: non-finite values")
 
     if profile_dir:
-        profile(alg, state, obs, profile_dir, card_line)
+        profile(lambda: alg.rollout(state, obs), "rollout", profile_dir, card_line)
 
     emit({"phase": "rollout", "ok": True, "card": card_line, "envs": n_envs, "steps": T,
           "setup_s": setup_s, "rollout_s": seconds,
@@ -379,16 +393,220 @@ def phase_rollout(dev, card_line: str, profile_dir: str | None):
     return {"scan_heights": launches}
 
 
-def profile(alg, state, obs, out_dir, card_line):
-    """One more rollout under torch.profiler: device busy time by kernel and
-    the device's idle share of the rollout's wall time."""
+def phase_update_reference(dev, card_line: str):
+    """One train_iteration of 8 envs on the card against the CPU: the same
+    reset state and env draws, parameters, action noise and permutation."""
+    import torch
+
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.learn.ppo import PPO, PPOArgs
+
+    n, T = 8, 8
+    g = torch.Generator().manual_seed(1)
+    noise = torch.randn(T, n, 12, generator=g)
+    perm = torch.randperm(T * n, generator=g)
+    log, outs = None, {}
+    for d in ("cpu", dev):
+        env = LeggedEnv(bench_cfg(n, tiles=2), seed=3, device=d)
+        if log is None:
+            log = env.draw = DrawLog(env)
+        else:
+            env.draw = log.replay(dev)
+        torch.manual_seed(0)                    # the same initial weights on both
+        alg = PPO(env, args=PPOArgs(num_steps_per_env=T), seed=0)
+        state = env.reset_fn(True)
+        ts = alg.init()
+        start = {k: v.detach().cpu().clone() for k, v in ts.params.items()}
+        ts, _, _, metrics = alg.train_iteration(ts, state, env.observe(state),
+                                                action_noise=noise.to(d), perm=perm)
+        outs[d] = (ts, metrics)
+    (ts_c, m_c), (ts_g, m_g) = outs["cpu"], outs[dev]
+
+    def rms_rel(a, b, keys):
+        """rms difference of the leaves ``keys`` over the rms distance they
+        moved from the start."""
+        d = sum(float((a[k].detach().cpu() - b[k].detach()).square().sum()) for k in keys)
+        m = sum(float((b[k].detach() - start[k]).square().sum()) for k in keys)
+        return (d / m) ** 0.5
+
+    leaf = {k: rms_rel(ts_g.params, ts_c.params, [k]) for k in ts_c.params}
+    worst = max(leaf, key=leaf.get)
+
+    def rel(a, b):
+        """Largest abs difference of a leaf over the leaf's largest value."""
+        return max(float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max().clamp(min=1e-30))
+                   for k in b)
+
+    losses = ("value_loss", "surrogate_loss", "adaptation_loss", "adaptation_test_loss",
+              "kl_mean")
+    errs = {"params_rms_rel": rms_rel(ts_g.params, ts_c.params, list(ts_c.params)),
+            "params_leaf_rms_rel": leaf[worst],
+            "opt_state": rel(ts_g.opt_state.mu, ts_c.opt_state.mu),
+            "adapt_opt_state": rel(ts_g.adapt_opt_state.mu, ts_c.adapt_opt_state.mu),
+            "learning_rate": abs(float(ts_g.learning_rate) / float(ts_c.learning_rate) - 1),
+            "losses": max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0)
+                          for k in losses)}
+    # the same float32 sums in another order (cuBLAS products, reductions),
+    # in the 8 steps of physics and in the update, where Adam's division by
+    # sqrt(nu) + 1e-8 lets a few elements with near-zero gradients step
+    # apart.  On an H100 the errors read: parameters 2.0e-3 of the rms
+    # distance they moved (2.6e-2 for the worst leaf, the adaptation
+    # module's first bias), Adam moments 5.7e-3 and 6.5e-3 of each leaf's
+    # largest value, losses 5.6e-5, the learning rate bitwise (the same
+    # branch at every minibatch); each limit is 5 to 10 times that
+    tol = {"params_rms_rel": 1e-2, "params_leaf_rms_rel": 0.13, "opt_state": 3e-2,
+           "adapt_opt_state": 4e-2, "learning_rate": 0.0, "losses": 5e-4}
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    emit({"phase": "update_reference", "ok": not bad, "card": card_line, "envs": n,
+          "steps": T, "max_err": errs, "tolerance": tol, "worst_leaf": worst,
+          "leaf_rms_rel": leaf,
+          "learning_rate": float(ts_c.learning_rate),
+          "losses_cpu": {k: float(m_c[k]) for k in losses}})
+    if bad:
+        raise AssertionError(f"train_iteration, card vs CPU beyond tolerance: {bad}")
+
+
+def update_flop(ac, samples: int) -> float:
+    """Matrix-product operations of a PPO update over ``samples`` sample
+    passes, from the layer shapes: each layer's forward, its weight
+    gradient and, where its input needs one, its input gradient.  The
+    actor's input holds the latent, so all its layers take an input
+    gradient; the critic's and the adaptation module's first layers read
+    the history only.  The adaptation module runs twice a minibatch (in the
+    policy, and in its own substep)."""
+    macs = lambda mlp: sum(l.in_features * l.out_features for l in mlp.layers)
+    first = lambda mlp: mlp.layers[0].in_features * mlp.layers[0].out_features
+    a, c, d = ac.actor_body, ac.critic_body, ac.adaptation_module
+    per_sample = 3 * macs(a) + (3 * macs(c) - first(c)) + 2 * (3 * macs(d) - first(d))
+    return 2.0 * per_sample * samples
+
+
+def phase_train(dev, card_line: str, profile_dir: str | None):
+    """The main path: the bench configuration trained by Runner.learn."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.learn.runner import Runner, RunnerArgs
+    from legged_tracking_torch.terrain import scan
+
+    n_envs, iters = NUM_ENVS, 4
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as logdir:
+        t0 = time.perf_counter()
+        env = LeggedEnv(bench_cfg(n_envs), device=dev)
+        scan.scan_heights.launches = 0
+        runner = Runner(env, runner_args=RunnerArgs(log_freq=1, save_interval=2),
+                        logdir=logdir, seed=0)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        at_observe = scan.scan_heights.launches
+        alg = runner.alg
+        T = alg.args.num_steps_per_env
+        start = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
+
+        # each iteration on the host clock between two synchronizes (Runner.learn
+        # reads its metrics back every iteration at log_freq 1, so the loop
+        # has that barrier anyway); its halves from CUDA events, which add none
+        timed, launches = [], []
+        spans = {"rollout": [], "update": []}
+
+        def clocked(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                before = scan.scan_heights.launches
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                timed.append(time.perf_counter() - t)
+                launches.append(scan.scan_heights.launches - before)
+                return out
+            return run
+
+        def evented(name, fn):
+            def run(*args, **kwargs):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                spans[name].append((start, end))
+                return out
+            return run
+
+        alg.train_iteration = clocked(alg.train_iteration)
+        alg.rollout = evented("rollout", alg.rollout)
+        alg.update = evented("update", alg.update)
+        history = runner.learn(iters, verbose=False)
+        total = scan.scan_heights.launches
+        if at_observe != 1 or launches != [T] * iters or total != 1 + T * iters:
+            raise AssertionError(f"scan_heights launches: {at_observe} at observe, {launches} "
+                                 f"per iteration, {total} in all; expected 1, {T} each")
+        bad = [(r["it"], k) for r in history for k, v in r.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if len(history) != iters or bad:
+            raise AssertionError(f"metrics: {len(history)} records, non-finite {bad}")
+        moved = {k: float((v.detach() - start[k]).abs().max())
+                 for k, v in runner.train_state.params.items()}
+        if not all(m > 0 for m in moved.values()):
+            raise AssertionError(f"parameters that did not move: "
+                                 f"{[k for k, m in moved.items() if m == 0]}")
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if [r["it"] for r in records] != list(range(iters)):
+            raise AssertionError(f"metrics.jsonl holds iterations {[r['it'] for r in records]}")
+        policy = np.load(os.path.join(logdir, "policy.npz"))
+        if "params/actor_body/Dense_0/kernel" not in policy:
+            raise AssertionError(f"policy.npz keys: {sorted(policy)[:5]}")
+        now = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
+        runner.load(os.path.join(logdir, "ac_weights_last.pkl"))
+        if not all(torch.equal(now[k], v) for k, v in runner.train_state.params.items()):
+            raise AssertionError("ac_weights_last.pkl does not load back the parameters")
+        files = sorted(os.listdir(logdir))
+
+    torch.cuda.synchronize()
+    split = {k: [a.elapsed_time(b) / 1e3 for a, b in v] for k, v in spans.items()}
+    # the first iteration carries one-time work (allocator growth, cuBLAS
+    # heuristics); the rate is over the rest
+    it_s, roll_s, upd_s = (float(np.mean(v[1:])) for v in (timed, split["rollout"],
+                                                            split["update"]))
+    flop = update_flop(alg.ac, n_envs * T * alg.args.num_learning_epochs)
+    last = history[-1]
+    emit({"phase": "train", "ok": True, "card": card_line, "envs": n_envs, "steps": T,
+          "iterations": iters, "minibatches": alg.args.num_learning_epochs
+          * alg.args.num_mini_batches, "setup_s": setup_s,
+          "train_env_steps_per_s": n_envs * T / it_s, "iteration_s": it_s,
+          "rollout_s": roll_s, "update_s": upd_s, "iteration_s_all": timed,
+          "rollout_s_all": split["rollout"], "update_s_all": split["update"],
+          "update_matmul_flop": flop, "update_flop_per_s": flop / upd_s,
+          "update_bound_s": flop / F32_OPS_PER_S,
+          "scan_heights_launches": total, "per_iteration": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "logdir_files": files,
+          "last": {k: last[k] for k in ("value_loss", "surrogate_loss", "adaptation_loss",
+                                        "kl_mean", "learning_rate", "mean_reward_per_step")}})
+    if profile_dir:
+        state, obs = runner.env_state, runner.obs_dict
+        profile(lambda: alg.train_iteration(runner.train_state, state, obs), "train_iteration",
+                profile_dir, card_line)
+        _, last_obs, traj, _, _ = alg.rollout(state, obs)
+        returns, adv = alg.compute_gae(traj, alg._last_values(last_obs, None))
+        profile(lambda: alg.update(runner.train_state, traj, returns, adv), "update",
+                profile_dir, card_line)
+    return {"scan_heights": total}
+
+
+def profile(fn, label: str, out_dir: str, card_line: str):
+    """``fn`` once more under torch.profiler: device busy time by kernel and
+    the device's idle share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity
     os.makedirs(out_dir, exist_ok=True)
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        alg.rollout(state, obs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -399,10 +617,10 @@ def profile(alg, state, obs, out_dir, card_line):
     busy_us = sum(r[1] for r in rows)
     runtime = {e.key: {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3} for e in ka
                if e.key.startswith("cuda") and e.count}
-    with open(os.path.join(out_dir, "rollout_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{label}_kernels.txt"), "w") as f:
         f.write(ka.table(sort_by=attr, row_limit=60))
-    emit({"phase": "profile", "card": card_line, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+    emit({"phase": "profile", "of": label, "card": card_line, "wall_s": wall,
+          "device_busy_s": busy_us / 1e6, "device_idle_share": 1.0 - busy_us / 1e6 / wall,
           "kernel_launches": sum(r[2] for r in rows), "runtime_calls": runtime,
           "top": [{"name": k[:80], "ms": t / 1e3, "count": c} for k, t, c in rows[:15]]})
 
@@ -410,7 +628,8 @@ def profile(alg, state, obs, out_dir, card_line):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one rollout and write the kernel table to DIR")
+                    help="also profile one rollout and one train iteration and write the "
+                         "kernel tables to DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -430,11 +649,15 @@ def main(argv=None) -> int:
     phase_build(card_line)
     rows = phase_kernels(dev, card_line)
     phase_reference(dev, card_line)
-    launches = phase_rollout(dev, card_line, args.profile)
+    by_path = {"rollout": phase_rollout(dev, card_line, args.profile)}
+    phase_update_reference(dev, card_line)
+    by_path["train"] = phase_train(dev, card_line, args.profile)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        if not row["launches"]:
-            raise AssertionError(f"{row['name']} was not launched on the main path")
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+        row["launches"] = by_path["train"][row["name"]]
+        if not all(row["launches_by_path"].values()):
+            raise AssertionError(f"{row['name']} was not launched on every path: "
+                                 f"{row['launches_by_path']}")
     emit({"kernels": rows, "card": card_line})
     print(card_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,11 @@ Every function here takes or returns numpy leaves, never JAX objects: the
 caller turns a JAX pytree into numpy first (``jax.tree.map(np.asarray, x)``,
 with PRNG keys left out) and back.
 
-- flax ``ActorCriticCSE`` params -> the torch module's ``state_dict``;
+- flax ``ActorCriticCSE`` params -> the torch module's ``state_dict``, and
+  back (the way back is the export's, :mod:`.io.checkpoint`);
+- optax Adam states (the PPO chain and the plain Adam) -> the port's
+  :class:`~.learn.optim.AdamState`, and back; a whole ``TrainState`` both
+  ways;
 - the actuator-net npz -> :class:`~.actuation.actuators.ActuatorNet`;
 - ``EnvState`` / ``TerrainArrays`` numpy leaves -> the port's, and back.
 """
@@ -16,10 +20,12 @@ import torch
 
 from .actuation.actuators import ActuatorNet, ActuatorState
 from .envs.state import EnvState
+from .io.checkpoint import AC_BRANCHES, state_dict_to_flax_params
+from .learn.optim import AdamState
+from .learn.ppo import TrainState
+from .learn.utils import RunningMeanStd
 from .physics.engine import PhysState
 from .terrain.heightfield import TerrainArrays
-
-_AC_BRANCHES = ("adaptation_module", "actor_body", "critic_body")
 
 
 def _fields(obj) -> dict:
@@ -49,7 +55,7 @@ def flax_params_to_state_dict(params) -> dict:
     Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights (out, in)."""
     p = params.get("params", params)
     sd = {"std": torch.as_tensor(np.array(p["std"], np.float32))}
-    for branch in _AC_BRANCHES:
+    for branch in AC_BRANCHES:
         layers = p[branch]
         for i in range(len(layers)):
             dense = layers[f"Dense_{i}"]
@@ -57,6 +63,79 @@ def flax_params_to_state_dict(params) -> dict:
                 np.array(np.asarray(dense["kernel"], np.float32).T, order="C"))
             sd[f"{branch}.layers.{i}.bias"] = torch.as_tensor(np.array(dense["bias"], np.float32))
     return sd
+
+
+# --------------------------------------------------------------- optimizer
+def _adam_node(state):
+    """The optax ``ScaleByAdamState`` (the node with count, mu and nu) inside
+    a chain's state, given as nested tuples."""
+    if hasattr(state, "_fields") and {"count", "mu", "nu"} <= set(state._fields):
+        return state
+    for child in (state if isinstance(state, tuple) else ()):
+        found = _adam_node(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_optax(state, device="cuda") -> AdamState:
+    """An optax Adam state as numpy leaves (``clip_by_global_norm`` then
+    ``inject_hyperparams(adam)``, or plain ``adam``) -> :class:`AdamState`."""
+    node = _adam_node(state)
+    moments = lambda tree: {k: v.to(device) for k, v in flax_params_to_state_dict(tree).items()}
+    return AdamState(count=int(node.count), mu=moments(node.mu), nu=moments(node.nu))
+
+
+def adam_state_to_optax(state: AdamState, like, learning_rate=None):
+    """:class:`AdamState` -> ``like`` (the same optax state as numpy leaves)
+    with its count and moments replaced; an ``inject_hyperparams`` node gets
+    the same count and, when given, ``learning_rate``."""
+    fields = set(getattr(like, "_fields", ()))
+    count = lambda: np.asarray(state.count, np.asarray(like.count).dtype)
+    if {"count", "mu", "nu"} <= fields:
+        return like._replace(count=count(), mu=state_dict_to_flax_params(state.mu),
+                             nu=state_dict_to_flax_params(state.nu))
+    if "inner_state" in fields:
+        hyper = dict(like.hyperparams)
+        if learning_rate is not None:
+            hyper["learning_rate"] = np.asarray(learning_rate, np.float32)
+        return like._replace(count=count(), hyperparams=hyper,
+                             inner_state=adam_state_to_optax(state, like.inner_state,
+                                                             learning_rate))
+    if type(like) is tuple:         # a chain's state
+        return tuple(adam_state_to_optax(state, c, learning_rate) for c in like)
+    return like                     # a stateless node (optax EmptyState)
+
+
+def train_state_from_numpy(ts, ppo, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` as numpy leaves -> the port's.  Its parameters
+    are loaded into ``ppo.ac``, whose parameters the returned state holds."""
+    ppo.ac.load_state_dict(flax_params_to_state_dict(ts.params))
+    rms = None
+    if ts.obs_rms is not None:
+        rms = RunningMeanStd(*(torch.as_tensor(np.array(x, np.float32), device=device)
+                               for x in (ts.obs_rms.mean, ts.obs_rms.var, ts.obs_rms.count)))
+    return TrainState(
+        params=dict(ppo.ac.named_parameters()),
+        opt_state=adam_state_from_optax(ts.opt_state, device),
+        adapt_opt_state=adam_state_from_optax(ts.adapt_opt_state, device),
+        learning_rate=torch.tensor(np.float32(ts.learning_rate), device=device),
+        iteration=int(ts.iteration), obs_rms=rms)
+
+
+def train_state_to_numpy(ts: TrainState, like):
+    """The port's ``TrainState`` -> ``like`` (a JAX ``TrainState`` as numpy
+    leaves) with every field replaced by the port's values."""
+    lr = np.float32(ts.learning_rate.item())
+    out = like._replace(
+        params=state_dict_to_flax_params(ts.params),
+        opt_state=adam_state_to_optax(ts.opt_state, like.opt_state, lr),
+        adapt_opt_state=adam_state_to_optax(ts.adapt_opt_state, like.adapt_opt_state),
+        learning_rate=lr, iteration=np.int32(ts.iteration))
+    if ts.obs_rms is not None:
+        out = out._replace(obs_rms=like.obs_rms._replace(
+            **{k: _numpy(v) for k, v in ts.obs_rms._asdict().items()}))
+    return out
 
 
 # --------------------------------------------------------------- actuators

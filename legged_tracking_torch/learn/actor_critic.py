@@ -120,3 +120,12 @@ def normal_log_prob(mean, std, actions):
 
 def normal_entropy(std):
     return torch.sum(0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(std), dim=-1)
+
+
+def normal_kl(mu1, sigma1, mu2, sigma2):
+    """The reference's KL(N1||N2) for the adaptive learning rate
+    (ppo_cse/ppo.py:112-117), ``+ 1e-5`` inside the log included."""
+    return torch.sum(
+        torch.log(sigma2 / sigma1 + 1e-5)
+        + (torch.square(sigma1) + torch.square(mu1 - mu2)) / (2.0 * torch.square(sigma2))
+        - 0.5, dim=-1)

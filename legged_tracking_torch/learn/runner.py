@@ -1,0 +1,385 @@
+"""Training runner: the host loop around ``PPO.train_iteration`` (port of
+``learn/runner.py``, the single-device ``Runner``).
+
+Mirrors the reference Runner (go1_gym_learn/ppo_cse/__init__.py:66-345):
+``learn`` drives iterations, logs episodic metrics and fps to
+``metrics.jsonl``, checkpoints every ``save_interval`` iterations, keeps a
+best-score snapshot, and applies the fix-target curriculum
+(update_curriculum, legged_robot_trajectory_tracking.py:186-196) from the
+reached statistics of each iteration.
+
+Checkpoints are pickles of numpy leaves only (parameters under the
+module's names, both Adam states, the learning rate, the iteration, the
+curriculum state and the obs normalizer); ``policy.npz`` has the JAX
+package's deployment layout.  The runner is held against the JAX package,
+so it keeps that package's runner behaviour, the four faults ADVICE.md
+lists included (ROADMAP.md §C).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..io.checkpoint import export_policy_npz
+from .actor_critic import ACArgs
+from .metrics_caches import DistCache, SlotCache
+from .optim import AdamState
+from .ppo import PPO, PPOArgs, copy_state
+from .utils import RunningMeanStd
+
+
+@dataclass
+class RunnerArgs:
+    """RunnerArgs parity (ppo_cse/__init__.py:47-64)."""
+    num_steps_per_env: int = 24
+    save_interval: int = 400
+    log_freq: int = 10
+    resume: str = ""
+    resume_curriculum: bool = True
+    # training-time video of env0 every N iterations; 0 disables (only 0
+    # is ported)
+    save_video_interval: int = 0
+    # critic-only warmup iterations after a resume, before any policy
+    # gradient flows (resume-shock mitigation); 0 disables
+    critic_warmup_iters: int = 0
+
+
+def _adam_numpy(s: AdamState) -> dict:
+    leaves = lambda d: {k: v.detach().cpu().numpy() for k, v in d.items()}
+    return {"count": s.count, "mu": leaves(s.mu), "nu": leaves(s.nu)}
+
+
+def _adam_tensors(d: dict, device) -> AdamState:
+    tensors = lambda m: {k: torch.as_tensor(v, device=device) for k, v in m.items()}
+    return AdamState(count=int(d["count"]), mu=tensors(d["mu"]), nu=tensors(d["nu"]))
+
+
+class Runner:
+    def __init__(self, env, runner_args: RunnerArgs | None = None,
+                 ppo_args: PPOArgs | None = None, ac_args: ACArgs | None = None,
+                 logdir: str | None = None, log_wandb: bool = False, seed: int = 1,
+                 ac=None, num_devices: int | None = None, distributed: bool = False):
+        if distributed or (num_devices is not None and num_devices > 1):
+            raise NotImplementedError("data parallelism (num_devices, distributed) is not "
+                                      "ported yet (ROADMAP A13)")
+        self.env = env
+        self.runner_args = runner_args or RunnerArgs()
+        if self.runner_args.save_video_interval > 0:
+            raise NotImplementedError("training video (save_video_interval) is not ported "
+                                      "yet (ROADMAP A12)")
+        ppo_args = ppo_args or PPOArgs()
+        ppo_args.num_steps_per_env = self.runner_args.num_steps_per_env
+        self.device = env.device
+        # one seed each for the parameters, the env's draws and the action
+        # noise, as the JAX runner splits one key
+        s_init, s_env, s_act = (int(s) for s in np.random.SeedSequence(seed).generate_state(3))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(s_init)
+            self.alg = PPO(env, ac_args=ac_args, args=ppo_args, ac=ac, seed=s_act)
+        self.logdir = logdir
+        self.log_wandb = log_wandb
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+            # config snapshot (parameters.pkl analogue, ppo_cse/__init__.py:81-84)
+            with open(os.path.join(logdir, "parameters.pkl"), "wb") as f:
+                pickle.dump(env.cfg, f)
+
+        self.env_state = None
+        self._pending_curriculum = self._pending_target_dist = None
+        self.train_state = self.alg.init()
+        if self.runner_args.resume:
+            self.load(self.runner_args.resume)
+        env.generator.manual_seed(s_env)
+        self.env_state = env.reset_fn(True)
+        if (self._pending_curriculum is not None
+                and getattr(self.env_state, "curriculum_weights", None) is not None):
+            self.env_state = self.env_state._replace(
+                curriculum_weights=self._rep(self._pending_curriculum))
+        if self._pending_target_dist is not None:
+            # resume fix-target curriculum progress (goal distance)
+            self.env_state = self.env_state._replace(
+                target_dist=self._rep(self._pending_target_dist))
+        self.obs_dict = env.observe(self.env_state)
+        self.tot_timesteps = 0
+        self._reached_window = deque(maxlen=4000)
+        # curriculum telemetry caches (reference ppo/metrics_caches.py)
+        self._dist_cache = DistCache()
+        self._slot_cache = None
+        cats = getattr(env, "category_names", None)
+        if cats:
+            self._slot_cache = SlotCache(len(cats))
+        self.history = []
+        # in-memory best-score snapshot (cl_restore_best_on_downstep and
+        # ac_weights_best.pkl): a deep copy, since the update changes the
+        # live parameters in place
+        self._best_score = (-1.0, -1.0)
+        self._best_train_state = None
+        self._best_it = -1
+        self._best_target_dist = 0.0
+        self._best_dirty = False
+        self._restore_count = 0
+        self._its_since_switch = 0
+
+    # --------------------------------------------------------------- helpers
+    def _rep(self, x):
+        return torch.tensor(np.asarray(x, np.float32), device=self.device)
+
+    def _restore(self, snapshot):
+        """Make ``snapshot`` the training state: its parameters are copied
+        into the module's, everything else is a fresh copy (the iteration
+        goes back to the snapshot's, as in the JAX package)."""
+        params = self.train_state.params
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(snapshot.params[k])
+        self.train_state = copy_state(snapshot)._replace(params=params)
+
+    # ------------------------------------------------------------------ io
+    def save(self, path: str, train_state=None, target_dist=None):
+        """Pickle a checkpoint of numpy leaves.  train_state/target_dist
+        default to the current state; the best checkpoint passes its
+        snapshot (and that snapshot's curriculum distance) instead."""
+        ts = self.train_state if train_state is None else train_state
+        if target_dist is None:
+            target_dist = (float(self.env_state.target_dist)
+                           if self.env_state is not None else 0.0)
+        ckpt = {
+            "params": {k: v.detach().cpu().numpy() for k, v in ts.params.items()},
+            "opt_state": _adam_numpy(ts.opt_state),
+            "adapt_opt_state": _adam_numpy(ts.adapt_opt_state),
+            "learning_rate": float(ts.learning_rate),
+            "iteration": int(ts.iteration),
+            "target_dist": float(target_dist),
+        }
+        # command-curriculum state (reference ppo_cse/__init__.py:224-239)
+        if getattr(self.env_state, "curriculum_weights", None) is not None:
+            ckpt["curriculum_weights"] = self.env_state.curriculum_weights.cpu().numpy()
+        if ts.obs_rms is not None:
+            ckpt["obs_rms"] = {k: v.cpu().numpy() for k, v in ts.obs_rms._asdict().items()}
+        with open(path, "wb") as f:
+            pickle.dump(ckpt, f)
+
+    def load(self, path: str):
+        with open(path, "rb") as f:
+            ckpt = pickle.load(f)
+        ts = self.train_state
+        with torch.no_grad():
+            for k, p in ts.params.items():
+                p.copy_(torch.as_tensor(ckpt["params"][k]))
+        ts = ts._replace(learning_rate=self._rep(ckpt["learning_rate"]),
+                         iteration=int(ckpt["iteration"]))
+        if "obs_rms" in ckpt and ts.obs_rms is not None:
+            ts = ts._replace(obs_rms=RunningMeanStd(
+                **{k: self._rep(v) for k, v in ckpt["obs_rms"].items()}))
+        resume_cl = self.runner_args.resume_curriculum
+        self._pending_curriculum = ckpt.get("curriculum_weights") if resume_cl else None
+        self._pending_target_dist = ckpt.get("target_dist") if resume_cl else None
+        # Adam moments and the adaptation optimizer resume too (reference
+        # ppo_cse/__init__.py:97-104); checkpoints without them keep fresh ones
+        if "opt_state" in ckpt:
+            ts = ts._replace(opt_state=_adam_tensors(ckpt["opt_state"], self.device),
+                             adapt_opt_state=_adam_tensors(ckpt["adapt_opt_state"],
+                                                           self.device))
+        self.train_state = ts
+
+    # ----------------------------------------------------------------- loop
+    def learn(self, num_learning_iterations: int, verbose: bool = True,
+              profile_dir: str | None = None, update_model: bool = True):
+        """Drive training iterations.
+
+        profile_dir: a torch.profiler trace of iterations 10-12 is written
+        there (``trace.json``, and the kernel table).  update_model=False
+        rolls out without updating (reference --freeze_model): episodic
+        metrics log as usual; the update, the curriculum and the periodic
+        checkpoints are skipped."""
+        env = self.env
+        cfg = env.cfg
+        ct = cfg.curriculum_thresholds
+        t0 = time.time()
+        steps_per_iter = env.num_envs * self.alg.args.num_steps_per_env
+        # critic-only warmup after a resume (resume-shock mitigation)
+        wi = self.runner_args.critic_warmup_iters
+        if wi > 0 and self.runner_args.resume:
+            wopt = self.alg.warmup_init()
+            for w in range(wi):
+                (self.train_state, self.env_state, self.obs_dict, wm,
+                 wopt) = self.alg.warmup_iteration(self.train_state, self.env_state,
+                                                   self.obs_dict, wopt)
+                self.tot_timesteps += steps_per_iter
+                if verbose and (w % self.runner_args.log_freq == 0 or w == wi - 1):
+                    print(f"warmup {w:4d} | vloss {float(wm['value_loss']):.4f}")
+        prof = None
+        for it in range(num_learning_iterations):
+            if profile_dir and it == 10:
+                prof = self._start_profile()
+            if prof is not None and it == 13:
+                self._stop_profile(prof, profile_dir)
+                prof = None
+            self.train_state, self.env_state, self.obs_dict, metrics = \
+                self.alg.train_iteration(self.train_state, self.env_state, self.obs_dict,
+                                         update_model=update_model)
+            self.tot_timesteps += steps_per_iter
+
+            # fix-target curriculum (reference update_curriculum, :186-196),
+            # fed every iteration: the reference pushes each episode's
+            # outcome into a 4000-deep window at reset time
+            if ct.cl_fix_target and update_model:
+                # with rehearsal mixing (cl_dist_mix) the gate reads the
+                # frontier slice only
+                n_eps = int(metrics.get("frontier_num_episodes", metrics["num_episodes"]))
+                reach = float(metrics.get("frontier_reached_mean", metrics["reached_mean"]))
+                if n_eps > 0:
+                    self._reached_window.extend([reach] * n_eps)
+                    self._dist_cache.log(reached=reach, episodes_per_iter=float(n_eps))
+                down = getattr(ct, "cl_downstep_threshold", 0.0)
+                probe = int(getattr(ct, "cl_stagnation_probe", 0))
+                self._its_since_switch += 1
+                win_full = len(self._reached_window) >= 4000
+                win_mean = np.mean(self._reached_window) if self._reached_window else 0.0
+                if win_full and win_mean > ct.cl_switch_threshold:
+                    new_dist = min(float(self.env_state.target_dist) + ct.cl_switch_delta,
+                                   ct.cl_goal_target_dist)
+                    self.env_state = self.env_state._replace(target_dist=self._rep(new_dist))
+                    self._reached_window.clear()
+                    self._its_since_switch = 0
+                elif down > 0.0 and win_full and win_mean < down:
+                    # ease the task before the sparse-reward signal dies
+                    cur_dist = float(self.env_state.target_dist)
+                    new_dist = max(cur_dist - ct.cl_switch_delta, ct.cl_start_target_dist)
+                    self.env_state = self.env_state._replace(target_dist=self._rep(new_dist))
+                    self._reached_window.clear()
+                    self._its_since_switch = 0
+                    # restore the best snapshot on a real downstep (the
+                    # distance eased by more than the float32 round trip of
+                    # the start distance, 1e-4) from a snapshot whose own
+                    # window cleared the downstep bar
+                    if (getattr(ct, "cl_restore_best_on_downstep", False)
+                            and self._best_train_state is not None
+                            and new_dist < cur_dist - 1e-4
+                            and self._best_score[1] >= down):
+                        self._restore(self._best_train_state)
+                        self._restore_count += 1
+                elif (probe > 0 and win_full
+                      and win_mean >= max(down, ct.cl_switch_threshold - 0.1)
+                      and self._its_since_switch >= probe):
+                    # stagnation probe: advance anyway, from strength only
+                    new_dist = min(float(self.env_state.target_dist) + ct.cl_switch_delta,
+                                   ct.cl_goal_target_dist)
+                    self.env_state = self.env_state._replace(target_dist=self._rep(new_dist))
+                    self._reached_window.clear()
+                    self._its_since_switch = 0
+
+            if (it % self.runner_args.log_freq == 0) or it == num_learning_iterations - 1:
+                self._log(it, metrics, t0, update_model, verbose)
+
+            if (self.logdir and update_model
+                    and (it % self.runner_args.save_interval == 0) and it > 0):
+                self.save(os.path.join(self.logdir, f"ac_weights_{it:06d}.pkl"))
+                self.save(os.path.join(self.logdir, "ac_weights_last.pkl"))
+                # the best file holds the snapshot, which may be older than
+                # the current state
+                if self._best_dirty and self._best_train_state is not None:
+                    self._best_dirty = False
+                    self.save(os.path.join(self.logdir, "ac_weights_best.pkl"),
+                              train_state=self._best_train_state,
+                              target_dist=self._best_target_dist)
+                    with open(os.path.join(self.logdir, "best.json"), "w") as f:
+                        json.dump({"it": self._best_it,
+                                   "target_dist": self._best_score[0],
+                                   "window_reached": self._best_score[1],
+                                   "restores": self._restore_count}, f)
+        if prof is not None:
+            self._stop_profile(prof, profile_dir)
+
+        if self.logdir:
+            self.save(os.path.join(self.logdir, "ac_weights_last.pkl"))
+            # deployment export (policy.npz, the numpy runtime on the robot)
+            export_policy_npz(os.path.join(self.logdir, "policy.npz"),
+                              {k: v.detach() for k, v in self.train_state.params.items()})
+        return self.history
+
+    def _log(self, it, metrics, t0, update_model, verbose):
+        """One metrics.jsonl record (the JAX runner's keys), and the
+        best-score snapshot."""
+        env = self.env
+        m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+        fps = self.tot_timesteps / (time.time() - t0)
+        ep_means = dict(zip(["rew_" + n for n in env.metric_names], m.pop("episode_sums_mean")))
+        for prefix in ("eval_", "frontier_"):
+            # the held-out eval population, and the frontier slice of a
+            # rehearsal-mix run
+            if prefix + "episode_sums_mean" in m:
+                ep_means.update(zip([prefix + "rew_" + n for n in env.metric_names],
+                                    m.pop(prefix + "episode_sums_mean")))
+        rec = {k: float(v) for k, v in m.items()}
+        rec.update({k: float(v) for k, v in ep_means.items()})
+        rec.update({"it": it, "fps": fps, "timesteps": self.tot_timesteps})
+        if env.cfg.curriculum_thresholds.cl_fix_target:
+            rec["target_dist"] = float(self.env_state.target_dist)
+            rec["restored_best_total"] = self._restore_count
+        for k, v in self._dist_cache.get_summary().items():
+            rec["window_" + k] = float(v)
+        if getattr(self.env_state, "curriculum_weights", None) is not None:
+            w = self.env_state.curriculum_weights.cpu().numpy()
+            rec["curriculum_unlocked_frac"] = float((w > 0).mean())
+            rec["curriculum_weight_mean"] = float(w.mean())
+            if self._slot_cache is not None:
+                self._slot_cache.log(unlocked_frac=(w > 0).mean(axis=1),
+                                     weight_mean=w.mean(axis=1))
+                for k, v in self._slot_cache.get_summary().items():
+                    for ci, cname in enumerate(env.category_names):
+                        rec[f"curriculum_{k}_{cname}"] = float(v[ci])
+        self.history.append(rec)
+        # best-score snapshot on every log; ranked by distance only once
+        # the window clears 0.7
+        if update_model:
+            win = rec.get("window_reached", rec.get("reached_mean"))
+            if win is not None:
+                td = rec.get("target_dist", 0.0)
+                score = (td if float(win) >= 0.7 else 0.0, float(win))
+                if score > self._best_score:
+                    self._best_score = score
+                    self._best_train_state = copy_state(self.train_state)
+                    self._best_it = it
+                    self._best_target_dist = td
+                    self._best_dirty = True
+        if verbose:
+            print(f"it {it:5d} | fps {fps:9.0f} | rew {rec.get('rew_total', 0):8.3f} | "
+                  f"eplen {rec['episode_length_mean']:7.1f} | "
+                  f"reached {rec['reached_mean']:.3f} | "
+                  f"vloss {rec['value_loss']:.4f} | lr {rec['learning_rate']:.2e}")
+        if self.log_wandb:
+            import wandb
+            wandb.log(rec, step=it)
+        if self.logdir:
+            with open(os.path.join(self.logdir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+    # ------------------------------------------------------------ profiling
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        with open(os.path.join(profile_dir, "kernels.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
+        print(f"profiler trace written to {profile_dir}")
+

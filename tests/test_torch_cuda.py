@@ -173,3 +173,88 @@ def test_env_steps_on_card_match_cpu(cuda_device):
         torch.testing.assert_close(o.obs.cpu(), o_cpu.obs, rtol=0, atol=5e-4)
         torch.testing.assert_close(o.rew.cpu(), o_cpu.rew, rtol=0, atol=1e-6)
     assert scan.scan_heights.launches == launches + 1 + len(acts)
+
+
+def random_trajectory(alg, T, seed):
+    """A trajectory of random observations through ``alg``'s policy (on the
+    CPU): its means, stds, sampled actions, log-probs and values, random
+    rewards and dones."""
+    from legged_tracking_torch.learn.actor_critic import normal_log_prob
+    from legged_tracking_torch.learn.ppo import Transition
+
+    env = alg.env
+    N = env.num_envs
+    g = torch.Generator().manual_seed(seed)
+    obs = torch.randn(T, N, env.num_obs, generator=g)
+    priv = torch.randn(T, N, env.num_privileged_obs, generator=g)
+    hist = torch.randn(T, N, env.num_obs_history, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        mean, std = alg.ac.action_dist(obs, priv, hist.float())
+        std = std.expand_as(mean)
+        actions = mean + std * torch.randn(mean.shape, generator=g)
+        traj = Transition(obs=obs, privileged_obs=priv, obs_history=hist, actions=actions,
+                          rewards=torch.randn(T, N, generator=g),
+                          dones=torch.rand(T, N, generator=g) < 0.2,
+                          values=alg.ac.evaluate(obs, priv, hist.float()),
+                          log_prob=normal_log_prob(mean, std, actions), mu=mean, sigma=std)
+    return traj, torch.randn(N, generator=g), torch.randperm(T * N, generator=g)
+
+
+@pytest.mark.cuda
+def test_update_on_card_matches_cpu(cuda_device):
+    """One ``update`` (5 epochs x 4 minibatches) of a random 8-step,
+    16-env trajectory on the card (cuBLAS, the foreach Adam) against the
+    same update on the CPU, from the same parameters and permutation: the
+    learning rate bitwise; on an H100 the rms parameter error of each leaf
+    read 4.9e-4 of the distance it moved, the Adam moments 4.0e-4 of each
+    leaf's largest value, the losses 5.5e-6; the limits are about 10 times
+    that."""
+    from legged_tracking_torch.learn.ppo import PPO, Transition
+
+    algs = {}
+    for d in ("cpu", cuda_device):
+        torch.manual_seed(0)
+        algs[d] = PPO(LeggedEnv(tunnel_cfg(16, 2), seed=3, device=d))
+    traj, last_values, perm = random_trajectory(algs["cpu"], 8, seed=1)
+    out = {}
+    for d, alg in algs.items():
+        ts = alg.init()
+        start = {k: v.detach().cpu().clone() for k, v in ts.params.items()}
+        tr = Transition(*(x.to(d) for x in traj))
+        returns, adv = alg.compute_gae(tr, last_values.to(d))
+        out[d] = alg.update(ts, tr, returns, adv, perm=perm)
+    (ts_c, m_c), (ts_g, m_g) = out["cpu"], out[cuda_device]
+    errs = {
+        "params_leaf_rms_rel": max(float(((ts_g.params[k].detach().cpu() - v.detach()).square()
+                                          .mean() / (v.detach() - start[k]).square().mean())
+                                         .sqrt()) for k, v in ts_c.params.items()),
+        "opt_state": max(float((ts_g.opt_state.mu[k].cpu() - v).abs().max() / v.abs().max())
+                         for k, v in ts_c.opt_state.mu.items()),
+        "losses": max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0)
+                      for k in ("value_loss", "surrogate_loss", "adaptation_loss",
+                                "adaptation_test_loss", "kl_mean"))}
+    assert float(ts_g.learning_rate) == float(ts_c.learning_rate)
+    tol = {"params_leaf_rms_rel": 5e-3, "opt_state": 4e-3, "losses": 5e-5}
+    assert all(errs[k] <= tol[k] for k in tol), errs
+
+
+@pytest.mark.cuda
+def test_train_iteration_on_card_is_finite(cuda_device):
+    """A whole train_iteration of 64 envs on the card: finite metrics,
+    parameters that moved, and kernel B1 launched once per rollout step."""
+    from legged_tracking_torch.learn.ppo import PPO
+
+    env = LeggedEnv(tunnel_cfg(64, 8), seed=3, device=cuda_device)
+    alg = PPO(env, seed=0)
+    ts = alg.init()
+    start = {k: v.detach().clone() for k, v in ts.params.items()}
+    state = env.reset_fn(True)
+    obs = env.observe(state)
+    before = scan.scan_heights.launches
+    ts, state, obs, metrics = alg.train_iteration(ts, state, obs)
+    torch.cuda.synchronize()
+    assert scan.scan_heights.launches == before + alg.args.num_steps_per_env
+    for k, v in metrics.items():
+        assert v.device.type == "cuda" and bool(torch.isfinite(v.float()).all()), k
+    assert all(not torch.equal(v, start[k]) for k, v in ts.params.items())
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())

@@ -101,8 +101,8 @@ def test_rollout_matches_with_injected_normals():
     install(tenv, JaxDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
-        _, _, ttraj, metrics = talg.rollout(tstate, tenv.observe(tstate),
-                                            action_noise=torch.as_tensor(noise))
+        _, _, ttraj, metrics, _ = talg.rollout(tstate, tenv.observe(tstate),
+                                               action_noise=torch.as_tensor(noise))
     finally:
         del tenv.draw, tenv.step_fn
 

@@ -27,7 +27,18 @@ Phases, each printing one JSON line:
    parameters, env draws, action noise and permutation; the card's
    parameters, Adam moments, learning rate and losses are held to the
    CPU's within limits of 5 to 20 times the errors read on an H100.
-6. train: the main path.  The bench configuration at 4096 envs trained by
+6. cnn-update-reference: the same for the goal configuration with
+   ``ActorCriticCNN`` (conv encoder and GRU).
+7. planner: the local planner at 4096 envs x 462 scan points x 1,575
+   candidates: the quadform's validity against the direct form's (zero
+   mismatches), the device time of one ``_plan_local_targets`` (CUDA
+   events) beside its byte reckoning, and its peak memory.
+8. planner-reference: 8 envs of the hierarchy configuration, replanning
+   every 2 steps, stepped 5 times on the card and on the CPU from one
+   state with the same draws: the same choices, and obs, rewards, base
+   positions and local targets within limits of 5 to 20 times the
+   readings on an H100.
+9. train: the main path.  The bench configuration at 4096 envs trained by
    the port's ``Runner.learn`` for 4 iterations into a temporary logdir.
    Checks finite metrics, parameters that moved, the scan launched 24
    times an iteration and once at the Runner's observe, metrics.jsonl, a
@@ -35,8 +46,16 @@ Phases, each printing one JSON line:
    over the iterations after the first (host clock, each iteration between
    two synchronizes), their rollout/update split (CUDA events, no barrier
    inside an iteration) and the peak memory.
+10. train-goal: the goal path, stage A of ``tools/goal_recipe.sh`` at 4096
+   envs with its default policy (``ActorCriticCNN``, MLP encoder), held
+   as the train phase is, after B1 is held bitwise at its 100x32 tiles.
+11. train-hierarchy: the planner path, ``train_hierarchy``'s defaults (4000
+   envs, the planner replanning every 100 steps), held the same way, with
+   the planner's share of the rollout; B1 launches twice while the Runner
+   starts (the scan ``reset_fn`` stores for the planner, and observe).
 
-Then the kernel table as one JSON line, the card's name and power limit as
+Then each phase's wall seconds and the kernel table (B1's launches on every
+path), each as one JSON line, the card's name and power limit as
 ``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.  The
 script exits non-zero, without that last line, when CUDA is missing, when
 the port is not beside it, or when any phase fails.  It imports nothing of
@@ -108,6 +127,30 @@ def bench_cfg(num_envs: int, tiles: int = 32):
     return cfg
 
 
+def goal_args(num_envs: int | None = None, tiles: int = 32):
+    """The published goal recipe's flags as stage A of
+    ``tools/goal_recipe.sh`` gives them (random_pyramid tunnels of 100x32
+    cells, TrajectoryTrackingRewards, valid_goal, the fix-target curriculum,
+    the default ActorCriticCNN policy with its MLP height encoder), parsed
+    by the port's ``train.parse_args``."""
+    from legged_tracking_torch import train
+    return train.parse_args([
+        "--strategy", "goal", "--terrain", "random_pyramid",
+        "--num_envs", str(num_envs or NUM_ENVS),
+        "--max_noise_std", "1.0", "--cl_goal_target_dist", "3.8", "--cl_downstep", "0.5",
+        "--terrain_rows", str(tiles), "--terrain_cols", str(tiles)])
+
+
+def hierarchy_args(num_envs: int = 4000, tiles: int = 20, plan_interval: int = 100):
+    """``train_hierarchy``'s defaults (4000 envs, 20x20 random_pyramid tiles
+    of 100x32 cells, the planner replanning every 100 steps), parsed by the
+    port's ``train_hierarchy.parse_args``."""
+    from legged_tracking_torch import train_hierarchy
+    return train_hierarchy.parse_args([
+        "--num_envs", str(num_envs), "--terrain_rows", str(tiles),
+        "--terrain_cols", str(tiles), "--plan_interval", str(plan_interval)])
+
+
 def cuda_ms(fn, iters: int = 100, reps: int = 7) -> tuple[float, float]:
     """(device ms, call ms) of one call of ``fn``, medians over ``reps``.
 
@@ -173,21 +216,14 @@ def phase_build(card_line: str):
     emit({"phase": "build", "ok": True, "card": card_line, "seconds": seconds, "ptxas": ptxas})
 
 
-def phase_kernels(dev, card_line: str):
-    """Kernel B1 against its plain version at the main path's shapes."""
+def scan_args(terrain, table, cfg, dev):
+    """B1's arguments for every env of ``terrain``, in thirds: random bases
+    on the tiles, spawn bases (every scan point on a cell boundary), and
+    bases 10 m past the tiles (every point clamps)."""
     import torch
 
-    from legged_tracking_torch.terrain import heightfield as hf
-    from legged_tracking_torch.terrain import scan
-    from legged_tracking_torch.terrain.tunnel import build_terrain
-
-    n_envs = NUM_ENVS
-    cfg = bench_cfg(n_envs)
-    terrain = build_terrain(cfg, n_envs, cfg.seed, device=dev)
-    table = hf.bf16_table(terrain)
+    n_envs = terrain.env_origin.shape[0]
     g = torch.Generator(device=dev).manual_seed(0)
-    # thirds: random bases on the tiles, spawn bases (every scan point on a
-    # cell boundary), and bases 10 m past the tiles (every point clamps)
     base = terrain.env_origin[:, :2].clone()
     third = n_envs // 3
     base[:third] += torch.rand(third, 2, generator=g, device=dev) - 0.5
@@ -200,8 +236,45 @@ def phase_kernels(dev, card_line: str):
     gx = torch.as_tensor(cfg.terrain.measured_points_x, dtype=torch.float32)
     gy = torch.as_tensor(cfg.terrain.measured_points_y, dtype=torch.float32)
     grid = torch.stack(torch.meshgrid(gx, gy, indexing="ij"), -1).reshape(nx * ny, 2).to(dev)
-    hs = terrain.horizontal_scale
-    args = (table, terrain.env_tile, frames, grid, hs)
+    return table, terrain.env_tile, frames, grid, terrain.horizontal_scale
+
+
+def scan_check(env, dev) -> dict:
+    """B1 against its plain version on an env's own terrain and width,
+    atol 0, and both timed: the shapes a new path gives the kernel."""
+    import torch
+
+    from legged_tracking_torch.terrain import scan
+
+    args = scan_args(env.terrain, env.tile_table, env.cfg, dev)
+    out = scan.scan_heights(*args)
+    ref = scan.scan_heights_reference(*args)
+    err = float((out - ref).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"scan_heights at N={args[2].shape[0]}, table "
+                             f"{tuple(args[0].shape)}: kernel vs plain max abs err {err}")
+    return {"N": args[2].shape[0], "P": args[3].shape[0], "table": list(args[0].shape),
+            "launch_shape": list(scan.launch_shape(
+                args[2].shape[0], args[3].shape[0],
+                torch.cuda.get_device_properties(dev).multi_processor_count)),
+            "max_abs_err": err, "ms": cuda_ms(lambda: scan.scan_heights(*args))[0],
+            "plain_ms": cuda_ms(lambda: scan.scan_heights_reference(*args), iters=20)[0]}
+
+
+def phase_kernels(dev, card_line: str):
+    """Kernel B1 against its plain version at the main path's shapes."""
+    import torch
+
+    from legged_tracking_torch.terrain import heightfield as hf
+    from legged_tracking_torch.terrain import scan
+    from legged_tracking_torch.terrain.tunnel import build_terrain
+
+    n_envs = NUM_ENVS
+    cfg = bench_cfg(n_envs)
+    terrain = build_terrain(cfg, n_envs, cfg.seed, device=dev)
+    table = hf.bf16_table(terrain)
+    args = scan_args(terrain, table, cfg, dev)
+    frames, grid = args[2], args[3]
 
     out = scan.scan_heights(*args)
     torch.cuda.synchronize()
@@ -393,9 +466,11 @@ def phase_rollout(dev, card_line: str, profile_dir: str | None):
     return {"scan_heights": launches}
 
 
-def phase_update_reference(dev, card_line: str):
+def update_reference(dev, card_line: str, phase: str, make_cfg, make_ac, tol: dict):
     """One train_iteration of 8 envs on the card against the CPU: the same
-    reset state and env draws, parameters, action noise and permutation."""
+    reset state and env draws, parameters, action noise and permutation.
+    ``make_cfg()`` gives the configuration, ``make_ac(env)`` the policy
+    (None: the CSE MLP); its errors are held to ``tol``."""
     import torch
 
     from legged_tracking_torch.envs import LeggedEnv
@@ -407,13 +482,13 @@ def phase_update_reference(dev, card_line: str):
     perm = torch.randperm(T * n, generator=g)
     log, outs = None, {}
     for d in ("cpu", dev):
-        env = LeggedEnv(bench_cfg(n, tiles=2), seed=3, device=d)
+        env = LeggedEnv(make_cfg(), seed=3, device=d)
         if log is None:
             log = env.draw = DrawLog(env)
         else:
             env.draw = log.replay(dev)
         torch.manual_seed(0)                    # the same initial weights on both
-        alg = PPO(env, args=PPOArgs(num_steps_per_env=T), seed=0)
+        alg = PPO(env, args=PPOArgs(num_steps_per_env=T), ac=make_ac(env), seed=0)
         state = env.reset_fn(True)
         ts = alg.init()
         start = {k: v.detach().cpu().clone() for k, v in ts.params.items()}
@@ -424,10 +499,11 @@ def phase_update_reference(dev, card_line: str):
 
     def rms_rel(a, b, keys):
         """rms difference of the leaves ``keys`` over the rms distance they
-        moved from the start."""
+        moved from the start (0 for a leaf that stayed, on both: a GRU's
+        hidden weights over a 1-frame history, whose hidden state is 0)."""
         d = sum(float((a[k].detach().cpu() - b[k].detach()).square().sum()) for k in keys)
         m = sum(float((b[k].detach() - start[k]).square().sum()) for k in keys)
-        return (d / m) ** 0.5
+        return (d / m) ** 0.5 if m else (0.0 if d == 0 else float("inf"))
 
     leaf = {k: rms_rel(ts_g.params, ts_c.params, [k]) for k in ts_c.params}
     worst = max(leaf, key=leaf.get)
@@ -446,6 +522,18 @@ def phase_update_reference(dev, card_line: str):
             "learning_rate": abs(float(ts_g.learning_rate) / float(ts_c.learning_rate) - 1),
             "losses": max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0)
                           for k in losses)}
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    emit({"phase": phase, "ok": not bad, "card": card_line, "envs": n,
+          "steps": T, "policy": type(alg.ac).__name__, "max_err": errs, "tolerance": tol,
+          "worst_leaf": worst, "leaf_rms_rel": leaf,
+          "learning_rate": float(ts_c.learning_rate),
+          "losses_cpu": {k: float(m_c[k]) for k in losses}})
+    if bad:
+        raise AssertionError(f"{phase}: train_iteration, card vs CPU beyond tolerance: {bad}")
+
+
+def phase_update_reference(dev, card_line: str):
+    """The bench configuration's CSE policy."""
     # the same float32 sums in another order (cuBLAS products, reductions),
     # in the 8 steps of physics and in the update, where Adam's division by
     # sqrt(nu) + 1e-8 lets a few elements with near-zero gradients step
@@ -456,21 +544,171 @@ def phase_update_reference(dev, card_line: str):
     # branch at every minibatch); each limit is 5 to 10 times that
     tol = {"params_rms_rel": 1e-2, "params_leaf_rms_rel": 0.13, "opt_state": 3e-2,
            "adapt_opt_state": 4e-2, "learning_rate": 0.0, "losses": 5e-4}
-    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
-    emit({"phase": "update_reference", "ok": not bad, "card": card_line, "envs": n,
-          "steps": T, "max_err": errs, "tolerance": tol, "worst_leaf": worst,
-          "leaf_rms_rel": leaf,
-          "learning_rate": float(ts_c.learning_rate),
-          "losses_cpu": {k: float(m_c[k]) for k in losses}})
-    if bad:
-        raise AssertionError(f"train_iteration, card vs CPU beyond tolerance: {bad}")
+    update_reference(dev, card_line, "update_reference", lambda: bench_cfg(8, tiles=2),
+                     lambda env: None, tol)
+
+
+def phase_cnn_update_reference(dev, card_line: str):
+    """The goal configuration with ActorCriticCNN, conv encoder and GRU."""
+    from legged_tracking_torch import train
+
+    args = goal_args(8, tiles=2)
+    args.cnn = args.gru = True
+    # as in the CSE policy's phase; on an H100 the errors read: parameters
+    # 7.1e-4 of the rms distance they moved (3.3e-3 for the worst leaf),
+    # Adam moments 2.9e-3 and 1.1e-3, losses 2.0e-5, the learning rate
+    # bitwise; each limit is 5 to 10 times that
+    tol = {"params_rms_rel": 5e-3, "params_leaf_rms_rel": 3e-2, "opt_state": 2e-2,
+           "adapt_opt_state": 1e-2, "learning_rate": 0.0, "losses": 2e-4}
+    update_reference(dev, card_line, "cnn_update_reference", lambda: train.build_cfg(args),
+                     lambda env: train.make_policy(args, env.cfg, env), tol)
+
+
+def planner_inputs(env, dev):
+    """The planner's inputs for every env of ``env``: the reset state, its
+    bases moved up to 2.5 m into the obstacle window and turned, and the
+    scans (B1) there."""
+    import torch
+
+    from legged_tracking_torch.utils import quat as qt
+
+    state = env.reset_fn(True)
+    N = env.num_envs
+    g = torch.Generator(device=dev).manual_seed(2)
+    phys = state.phys
+    base_pos = phys.base_pos + torch.cat(
+        [torch.rand(N, 1, generator=g, device=dev) * 2.5,
+         torch.rand(N, 1, generator=g, device=dev) * 0.6 - 0.3,
+         torch.zeros(N, 1, device=dev)], dim=1)
+    yaw = torch.rand(N, generator=g, device=dev) * 1.6 - 0.8
+    base_quat = qt.quat_from_angle_axis(yaw, torch.tensor([0.0, 0.0, 1.0], device=dev)
+                                        .expand(N, 3))
+    base_rpy = qt.quaternion_to_roll_pitch_yaw(base_quat)
+    mh = env._get_heights(base_pos, base_rpy)
+    target = env._select_waypoint(state.trajectories, state.curr_pose_index)
+    rel_lin, _ = env._relative_pose(target, base_pos, base_quat, base_rpy)
+    ep_len = torch.ones(N, dtype=torch.int32, device=dev)      # every env plans
+    return (state, target, rel_lin, base_pos, base_quat, base_rpy, mh, ep_len)
+
+
+def phase_planner(dev, card_line: str):
+    """The local planner at 4096 envs x 462 scan points x 1,575 candidates:
+    quadform against its direct form, and one _plan_local_targets timed."""
+    import torch
+
+    from legged_tracking_torch import train_hierarchy
+    from legged_tracking_torch.envs import LeggedEnv
+
+    env = LeggedEnv(train_hierarchy.build_cfg(hierarchy_args(NUM_ENVS, tiles=32)), device=dev)
+    inputs = planner_inputs(env, dev)
+    pts = env.scan_points(inputs[6])
+    quad = env.candidates_valid(pts, quadform=True)
+    direct = env.candidates_valid(pts, quadform=False)
+    mismatches = int((quad != direct).sum())
+    N, P2, C = pts.shape[0], pts.shape[1], quad.shape[1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = env._plan_local_targets(*inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    ms, call_ms = cuda_ms(lambda: env._plan_local_targets(*inputs), iters=5, reps=3)
+    # the direct form launches about twenty kernels per chunk of 28
+    # candidates, more than the device queues behind a sleep: one call on
+    # the host clock between two synchronizes (it is device-bound)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env.candidates_valid(pts, quadform=False)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    # the implementation's traffic: per chunk F (N, 2P, 8) read, q (N, 2P,
+    # chunk) written by the product and read by the reduction; the least
+    # traffic of the function: the points, the weights and (N, C) out
+    q_bytes = 2 * N * P2 * C * 4
+    f_bytes = (C // env._plan_chunk) * N * P2 * 8 * 4
+    least_bytes = N * P2 * 3 * 4 + 8 * C * 4 + N * C
+    flop = 2 * 8 * N * P2 * C
+    emit({"phase": "planner", "ok": mismatches == 0, "card": card_line, "envs": N,
+          "scan_points": P2, "candidates": C, "chunk": env._plan_chunk,
+          "direct_vs_quadform_mismatches": mismatches,
+          "valid_share": float(quad.float().mean()),
+          "envs_with_a_valid_candidate": int(quad.any(dim=1).sum()),
+          "planned_finite": bool(torch.isfinite(out[0]).all()),
+          "plan_ms": ms, "plan_call_ms": call_ms, "direct_valid_call_ms": direct_ms,
+          "peak_mem_gib": peak / 2 ** 30,
+          "q_bytes": q_bytes, "f_bytes": f_bytes,
+          "bytes_ms": (q_bytes + f_bytes) / HBM_BYTES_PER_S * 1e3,
+          "least_bytes_ms": least_bytes / HBM_BYTES_PER_S * 1e3,
+          "flop": flop, "flop_ms": flop / F32_OPS_PER_S * 1e3})
+    if mismatches:
+        raise AssertionError(f"planner: {mismatches} candidates differ between the "
+                             f"quadform and the direct form")
+
+
+def phase_planner_reference(dev, card_line: str):
+    """8 envs of the hierarchy configuration, replanning every 2 steps,
+    stepped 5 times on the card and on the CPU from one state with the same
+    draws."""
+    import torch
+
+    from legged_tracking_torch import train_hierarchy
+    from legged_tracking_torch.envs import LeggedEnv
+
+    n, steps = 8, 5
+    cfg = lambda: train_hierarchy.build_cfg(hierarchy_args(n, tiles=2, plan_interval=2))
+    cpu, card_env = (LeggedEnv(cfg(), seed=3, device=d) for d in ("cpu", dev))
+    log = DrawLog(cpu)
+    cpu.draw = log
+    # episodes start at step 0, so every env plans at its first step
+    s_cpu = s_reset = cpu.reset_fn(False)
+    acts = [0.3 * torch.sin(0.1 * i + torch.arange(n * 12, dtype=torch.float32)).reshape(n, 12)
+            for i in range(steps)]
+    outs_cpu = []
+    for a in acts:
+        s_cpu, out = cpu.step_fn(s_cpu, a)
+        outs_cpu.append((s_cpu, out))
+    card_env.draw = log.replay(dev)
+    s = card_env.reset_fn(False)
+    if not torch.equal(s.measured_heights.cpu(), s_reset.measured_heights):
+        raise AssertionError("the reset scan differs between the card and the CPU")
+    worst = {"base_pos": 0.0, "obs": 0.0, "rew": 0.0, "local_target_poses": 0.0}
+    differing, planned = 0, 0
+    for a, (sc, out_cpu) in zip(acts, outs_cpu):
+        s, out = card_env.step_fn(s, a.to(dev))
+        if not torch.equal(out.done.cpu(), out_cpu.done):
+            raise AssertionError("done flags differ between the card and the CPU")
+        for k in ("plan_length", "plan_buf", "replan"):
+            if not torch.equal(getattr(s, k).cpu(), getattr(sc, k)):
+                raise AssertionError(f"{k} differs between the card and the CPU")
+        for k, x, y in (("base_pos", s.phys.base_pos, sc.phys.base_pos),
+                        ("obs", out.obs, out_cpu.obs), ("rew", out.rew, out_cpu.rew),
+                        ("local_target_poses", s.local_target_poses, sc.local_target_poses)):
+            worst[k] = max(worst[k], float((x.cpu() - y).abs().max()))
+        differing += int(((s.local_target_poses.cpu() - sc.local_target_poses).abs()
+                          .amax(dim=1) > 1e-3).sum())
+        planned += int((sc.plan_length == 0).sum())
+    # the same float32 sums in another order as in the reference phase; on
+    # an H100 the errors read 1.8e-7 (base_pos), 3.2e-5 (obs), 4.8e-7 (rew,
+    # of rewards up to |rew_max|) and 0 (local targets: every env planned
+    # at its first step, from the same reset state); each limit is 5 to 20
+    # times that, and 1e-6 for the local targets, the float32 arithmetic of
+    # the world transform at a few metres should a later plan differ
+    tol = {"base_pos": 2e-6, "obs": 5e-4, "rew": 5e-6, "local_target_poses": 1e-6}
+    bad = {k: v for k, v in worst.items() if not v <= tol[k]}
+    rew_max = max(float(o.rew.abs().max()) for _, o in outs_cpu)
+    emit({"phase": "planner_reference", "ok": not bad and not differing, "card": card_line,
+          "envs": n, "steps": steps, "plans": planned, "envs_choosing_differently": differing,
+          "max_abs_err": worst, "tolerance": tol, "rew_max": rew_max})
+    if bad or differing:
+        raise AssertionError(f"planner card vs CPU: {bad}, {differing} differing choices")
 
 
 def update_flop(ac, samples: int) -> float:
-    """Matrix-product operations of a PPO update over ``samples`` sample
-    passes, from the layer shapes: each layer's forward, its weight
-    gradient and, where its input needs one, its input gradient.  The
-    actor's input holds the latent, so all its layers take an input
+    """Matrix-product operations of a PPO update of the CSE policy over
+    ``samples`` sample passes, from the layer shapes: each layer's forward,
+    its weight gradient and, where its input needs one, its input gradient.
+    The actor's input holds the latent, so all its layers take an input
     gradient; the critic's and the adaptation module's first layers read
     the history only.  The adaptation module runs twice a minibatch (in the
     policy, and in its own substep)."""
@@ -481,37 +719,43 @@ def update_flop(ac, samples: int) -> float:
     return 2.0 * per_sample * samples
 
 
-def phase_train(dev, card_line: str, profile_dir: str | None):
-    """The main path: the bench configuration trained by Runner.learn."""
+def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
+                at_setup: int, profile_dir: str | None, extra: dict | None = None):
+    """Train ``env`` with the Runner ``make_runner(logdir)`` builds, through
+    Runner.learn, for ``iters`` iterations into a temporary logdir: finite
+    metrics, parameters that moved, B1 launched ``at_setup`` times while
+    the Runner starts and 24 times an iteration, metrics.jsonl, a
+    checkpoint that loads back, policy.npz.  Prints train env-steps/s over
+    the iterations after the first (host clock, each iteration between two
+    synchronizes), the rollout/update split and, with the planner on, the
+    planner's share of the rollout (CUDA events, no barrier inside an
+    iteration), and the peak memory.  Returns B1's launches."""
     import tempfile
 
     import numpy as np
     import torch
 
-    from legged_tracking_torch.envs import LeggedEnv
-    from legged_tracking_torch.learn.runner import Runner, RunnerArgs
+    from legged_tracking_torch.learn.actor_critic import ActorCriticCSE
     from legged_tracking_torch.terrain import scan
 
-    n_envs, iters = NUM_ENVS, 4
+    n_envs = env.num_envs
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as logdir:
         t0 = time.perf_counter()
-        env = LeggedEnv(bench_cfg(n_envs), device=dev)
         scan.scan_heights.launches = 0
-        runner = Runner(env, runner_args=RunnerArgs(log_freq=1, save_interval=2),
-                        logdir=logdir, seed=0)
+        runner = make_runner(logdir)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        at_observe = scan.scan_heights.launches
+        setup_launches = scan.scan_heights.launches
         alg = runner.alg
         T = alg.args.num_steps_per_env
         start = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
 
         # each iteration on the host clock between two synchronizes (Runner.learn
         # reads its metrics back every iteration at log_freq 1, so the loop
-        # has that barrier anyway); its halves from CUDA events, which add none
+        # has that barrier anyway); its parts from CUDA events, which add none
         timed, launches = [], []
-        spans = {"rollout": [], "update": []}
+        spans = {"rollout": [], "update": [], "planner": []}
 
         def clocked(fn):
             def run(*args, **kwargs):
@@ -535,34 +779,43 @@ def phase_train(dev, card_line: str, profile_dir: str | None):
                 return out
             return run
 
+        planning = env.cfg.commands.sampling_based_planning
         alg.train_iteration = clocked(alg.train_iteration)
         alg.rollout = evented("rollout", alg.rollout)
         alg.update = evented("update", alg.update)
+        if planning:
+            env._plan_local_targets = evented("planner", env._plan_local_targets)
         history = runner.learn(iters, verbose=False)
+        if planning:
+            del env._plan_local_targets
         total = scan.scan_heights.launches
-        if at_observe != 1 or launches != [T] * iters or total != 1 + T * iters:
-            raise AssertionError(f"scan_heights launches: {at_observe} at observe, {launches} "
-                                 f"per iteration, {total} in all; expected 1, {T} each")
+        if (setup_launches != at_setup or launches != [T] * iters
+                or total != at_setup + T * iters):
+            raise AssertionError(f"{phase}: scan_heights launches: {setup_launches} while the "
+                                 f"Runner starts, {launches} per iteration, {total} in all; "
+                                 f"expected {at_setup}, {T} each")
         bad = [(r["it"], k) for r in history for k, v in r.items()
                if isinstance(v, float) and not np.isfinite(v)]
         if len(history) != iters or bad:
-            raise AssertionError(f"metrics: {len(history)} records, non-finite {bad}")
+            raise AssertionError(f"{phase}: metrics: {len(history)} records, non-finite {bad}")
         moved = {k: float((v.detach() - start[k]).abs().max())
                  for k, v in runner.train_state.params.items()}
         if not all(m > 0 for m in moved.values()):
-            raise AssertionError(f"parameters that did not move: "
+            raise AssertionError(f"{phase}: parameters that did not move: "
                                  f"{[k for k, m in moved.items() if m == 0]}")
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         if [r["it"] for r in records] != list(range(iters)):
-            raise AssertionError(f"metrics.jsonl holds iterations {[r['it'] for r in records]}")
+            raise AssertionError(f"{phase}: metrics.jsonl holds iterations "
+                                 f"{[r['it'] for r in records]}")
         policy = np.load(os.path.join(logdir, "policy.npz"))
         if "params/actor_body/Dense_0/kernel" not in policy:
-            raise AssertionError(f"policy.npz keys: {sorted(policy)[:5]}")
+            raise AssertionError(f"{phase}: policy.npz keys: {sorted(policy)[:5]}")
         now = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
         runner.load(os.path.join(logdir, "ac_weights_last.pkl"))
         if not all(torch.equal(now[k], v) for k, v in runner.train_state.params.items()):
-            raise AssertionError("ac_weights_last.pkl does not load back the parameters")
+            raise AssertionError(f"{phase}: ac_weights_last.pkl does not load back the "
+                                 f"parameters")
         files = sorted(os.listdir(logdir))
 
     torch.cuda.synchronize()
@@ -571,30 +824,92 @@ def phase_train(dev, card_line: str, profile_dir: str | None):
     # heuristics); the rate is over the rest
     it_s, roll_s, upd_s = (float(np.mean(v[1:])) for v in (timed, split["rollout"],
                                                             split["update"]))
-    flop = update_flop(alg.ac, n_envs * T * alg.args.num_learning_epochs)
-    last = history[-1]
-    emit({"phase": "train", "ok": True, "card": card_line, "envs": n_envs, "steps": T,
-          "iterations": iters, "minibatches": alg.args.num_learning_epochs
-          * alg.args.num_mini_batches, "setup_s": setup_s,
-          "train_env_steps_per_s": n_envs * T / it_s, "iteration_s": it_s,
-          "rollout_s": roll_s, "update_s": upd_s, "iteration_s_all": timed,
-          "rollout_s_all": split["rollout"], "update_s_all": split["update"],
-          "update_matmul_flop": flop, "update_flop_per_s": flop / upd_s,
-          "update_bound_s": flop / F32_OPS_PER_S,
-          "scan_heights_launches": total, "per_iteration": launches,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "logdir_files": files,
-          "last": {k: last[k] for k in ("value_loss", "surrogate_loss", "adaptation_loss",
-                                        "kl_mean", "learning_rate", "mean_reward_per_step")}})
+    row = {"phase": phase, "ok": True, "card": card_line, "envs": n_envs, "steps": T,
+           "policy": type(alg.ac).__name__, "iterations": iters,
+           "minibatches": alg.args.num_learning_epochs * alg.args.num_mini_batches,
+           "setup_s": setup_s, "train_env_steps_per_s": n_envs * T / it_s,
+           "iteration_s": it_s, "rollout_s": roll_s, "update_s": upd_s,
+           "iteration_s_all": timed, "rollout_s_all": split["rollout"],
+           "update_s_all": split["update"],
+           "scan_heights_launches": total, "at_setup": setup_launches,
+           "per_iteration": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "logdir_files": files,
+           "last": {k: history[-1][k] for k in ("value_loss", "surrogate_loss",
+                                                 "adaptation_loss", "kl_mean", "learning_rate",
+                                                 "mean_reward_per_step")}}
+    if planning:
+        plan = split["planner"][T:]           # the iterations after the first
+        row["planner_s_per_step"] = float(np.mean(plan))
+        row["planner_share_of_rollout"] = float(np.sum(plan) / np.sum(split["rollout"][1:]))
+    if isinstance(alg.ac, ActorCriticCSE):
+        flop = update_flop(alg.ac, n_envs * T * alg.args.num_learning_epochs)
+        row.update({"update_matmul_flop": flop, "update_flop_per_s": flop / upd_s,
+                    "update_bound_s": flop / F32_OPS_PER_S})
+    row.update(extra or {})
+    emit(row)
     if profile_dir:
         state, obs = runner.env_state, runner.obs_dict
-        profile(lambda: alg.train_iteration(runner.train_state, state, obs), "train_iteration",
-                profile_dir, card_line)
-        _, last_obs, traj, _, _ = alg.rollout(state, obs)
-        returns, adv = alg.compute_gae(traj, alg._last_values(last_obs, None))
-        profile(lambda: alg.update(runner.train_state, traj, returns, adv), "update",
-                profile_dir, card_line)
+        profile(lambda: alg.train_iteration(runner.train_state, state, obs),
+                f"{phase}_iteration", profile_dir, card_line)
+        if phase == "train":
+            _, last_obs, traj, _, _ = alg.rollout(state, obs)
+            returns, adv = alg.compute_gae(traj, alg._last_values(last_obs, None))
+            profile(lambda: alg.update(runner.train_state, traj, returns, adv), "update",
+                    profile_dir, card_line)
     return {"scan_heights": total}
+
+
+def phase_train(dev, card_line: str, profile_dir: str | None):
+    """The main path: the bench configuration trained by Runner.learn."""
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.learn.runner import Runner, RunnerArgs
+
+    env = LeggedEnv(bench_cfg(NUM_ENVS), device=dev)
+    return train_phase(dev, card_line, "train", env, lambda logdir: Runner(
+        env, runner_args=RunnerArgs(log_freq=1, save_interval=2), logdir=logdir, seed=0),
+        iters=4, at_setup=1, profile_dir=profile_dir)
+
+
+def phase_train_goal(dev, card_line: str, profile_dir: str | None):
+    """The goal path: stage A of the published recipe at 4096 envs, its
+    default policy, trained by Runner.learn; B1 held at its terrain first."""
+    from legged_tracking_torch import train
+    from legged_tracking_torch.envs import LeggedEnv
+
+    args = goal_args()
+    cfg = train.build_cfg(args)
+    env = LeggedEnv(cfg, device=dev)
+    scan_row = scan_check(env, dev)
+
+    def make_runner(logdir):
+        args.logdir = logdir
+        return train.make_runner(args, cfg, env, log_freq=1, save_interval=2)
+    # one scan at the Runner's observe
+    return train_phase(dev, card_line, "train_goal", env, make_runner, iters=4, at_setup=1,
+                       profile_dir=profile_dir, extra={"scan_heights_check": scan_row})
+
+
+def phase_train_hierarchy(dev, card_line: str, profile_dir: str | None):
+    """The planner path: train_hierarchy's defaults (4000 envs, the planner
+    replanning every 100 steps) trained by Runner.learn; B1 held at its
+    terrain and width first."""
+    from legged_tracking_torch import train_hierarchy
+    from legged_tracking_torch.envs import LeggedEnv
+
+    args = hierarchy_args()
+    env = LeggedEnv(train_hierarchy.build_cfg(args), device=dev)
+    scan_row = scan_check(env, dev)
+
+    def make_runner(logdir):
+        args.logdir = logdir
+        return train_hierarchy.make_runner(args, env, log_freq=1, save_interval=2)
+    # two scans while the Runner starts: reset_fn stores one for the
+    # planner, observe takes one; each step then takes one, the planner
+    # reading the scan the step before stored
+    return train_phase(dev, card_line, "train_hierarchy", env, make_runner, iters=4,
+                       at_setup=2, profile_dir=profile_dir,
+                       extra={"scan_heights_check": scan_row})
 
 
 def profile(fn, label: str, out_dir: str, card_line: str):
@@ -646,12 +961,28 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     card_line = card()
 
-    phase_build(card_line)
-    rows = phase_kernels(dev, card_line)
-    phase_reference(dev, card_line)
-    by_path = {"rollout": phase_rollout(dev, card_line, args.profile)}
-    phase_update_reference(dev, card_line)
-    by_path["train"] = phase_train(dev, card_line, args.profile)
+    # wall seconds of each phase, set-up included: the run has to stay
+    # well inside its time limit as phases are added
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build, card_line)
+    rows = timed("kernels", phase_kernels, dev, card_line)
+    timed("reference", phase_reference, dev, card_line)
+    by_path = {"rollout": timed("rollout", phase_rollout, dev, card_line, args.profile)}
+    timed("update_reference", phase_update_reference, dev, card_line)
+    timed("cnn_update_reference", phase_cnn_update_reference, dev, card_line)
+    timed("planner", phase_planner, dev, card_line)
+    timed("planner_reference", phase_planner_reference, dev, card_line)
+    for path, fn in (("train", phase_train), ("train_goal", phase_train_goal),
+                     ("train_hierarchy", phase_train_hierarchy)):
+        by_path[path] = timed(path, fn, dev, card_line, args.profile)
+    emit({"phase_seconds": seconds, "card": card_line})
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
         row["launches"] = by_path["train"][row["name"]]

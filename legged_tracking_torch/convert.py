@@ -4,8 +4,9 @@ Every function here takes or returns numpy leaves, never JAX objects: the
 caller turns a JAX pytree into numpy first (``jax.tree.map(np.asarray, x)``,
 with PRNG keys left out) and back.
 
-- flax ``ActorCriticCSE`` params -> the torch module's ``state_dict``, and
-  back (the way back is the export's, :mod:`.io.checkpoint`);
+- flax ``ActorCriticCSE`` and ``ActorCriticCNN`` params -> the torch
+  module's ``state_dict``, and back (both ways are the checkpoints' and the
+  export's, :mod:`.io.checkpoint`, re-exported here);
 - optax Adam states (the PPO chain and the plain Adam) -> the port's
   :class:`~.learn.optim.AdamState`, and back; a whole ``TrainState`` both
   ways;
@@ -20,7 +21,8 @@ import torch
 
 from .actuation.actuators import ActuatorNet, ActuatorState
 from .envs.state import EnvState
-from .io.checkpoint import AC_BRANCHES, state_dict_to_flax_params
+from .io.checkpoint import (adam_from_checkpoint, flax_params_to_state_dict,
+                            state_dict_to_flax_params)
 from .learn.optim import AdamState
 from .learn.ppo import TrainState
 from .learn.utils import RunningMeanStd
@@ -48,44 +50,9 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-# ------------------------------------------------------------------ policy
-def flax_params_to_state_dict(params) -> dict:
-    """flax ``ActorCriticCSE`` params (nested dicts of numpy arrays, with or
-    without the top-level "params" key) -> ``ActorCriticCSE.state_dict()``.
-    Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights (out, in)."""
-    p = params.get("params", params)
-    sd = {"std": torch.as_tensor(np.array(p["std"], np.float32))}
-    for branch in AC_BRANCHES:
-        layers = p[branch]
-        for i in range(len(layers)):
-            dense = layers[f"Dense_{i}"]
-            sd[f"{branch}.layers.{i}.weight"] = torch.as_tensor(
-                np.array(np.asarray(dense["kernel"], np.float32).T, order="C"))
-            sd[f"{branch}.layers.{i}.bias"] = torch.as_tensor(np.array(dense["bias"], np.float32))
-    return sd
-
-
 # --------------------------------------------------------------- optimizer
-def _adam_node(state):
-    """The optax ``ScaleByAdamState`` (the node with count, mu and nu) inside
-    a chain's state, given as nested tuples."""
-    if hasattr(state, "_fields") and {"count", "mu", "nu"} <= set(state._fields):
-        return state
-    for child in (state if isinstance(state, tuple) else ()):
-        found = _adam_node(child)
-        if found is not None:
-            return found
-    return None
-
-
-def adam_state_from_optax(state, device="cuda") -> AdamState:
-    """An optax Adam state as numpy leaves (``clip_by_global_norm`` then
-    ``inject_hyperparams(adam)``, or plain ``adam``) -> :class:`AdamState`."""
-    node = _adam_node(state)
-    moments = lambda tree: {k: v.to(device) for k, v in flax_params_to_state_dict(tree).items()}
-    return AdamState(count=int(node.count), mu=moments(node.mu), nu=moments(node.nu))
-
-
+# an optax Adam state as numpy leaves -> AdamState: io.checkpoint's
+# adam_from_checkpoint, which reads the JAX package's checkpoints too
 def adam_state_to_optax(state: AdamState, like, learning_rate=None):
     """:class:`AdamState` -> ``like`` (the same optax state as numpy leaves)
     with its count and moments replaced; an ``inject_hyperparams`` node gets
@@ -117,8 +84,8 @@ def train_state_from_numpy(ts, ppo, device="cuda") -> TrainState:
                                for x in (ts.obs_rms.mean, ts.obs_rms.var, ts.obs_rms.count)))
     return TrainState(
         params=dict(ppo.ac.named_parameters()),
-        opt_state=adam_state_from_optax(ts.opt_state, device),
-        adapt_opt_state=adam_state_from_optax(ts.adapt_opt_state, device),
+        opt_state=adam_from_checkpoint(ts.opt_state, device),
+        adapt_opt_state=adam_from_checkpoint(ts.adapt_opt_state, device),
         learning_rate=torch.tensor(np.float32(ts.learning_rate), device=device),
         iteration=int(ts.iteration), obs_rms=rms)
 
@@ -177,6 +144,8 @@ def env_state_from_numpy(state, device="cuda") -> EnvState:
         elif name == "act":
             out[name] = ActuatorState(**{k: _tensor(v, device)
                                          for k, v in _fields(f[name]).items()})
+        elif f.get(name) is None and name == "measured_heights":
+            out[name] = None
         else:
             out[name] = _tensor(f[name], device)
     out["obs_history"] = out["obs_history"].to(torch.bfloat16)
@@ -185,9 +154,12 @@ def env_state_from_numpy(state, device="cuda") -> EnvState:
 
 def env_state_to_numpy(state: EnvState) -> dict:
     """The port's EnvState -> nested dict of numpy arrays under the JAX field
-    names (phys and act as dicts); obs_history comes back as float32."""
+    names (phys and act as dicts); obs_history comes back as float32.  A
+    field that is None (measured_heights without the planner) is left out."""
     out = {}
     for name, v in state._asdict().items():
+        if v is None:
+            continue
         if name in ("phys", "act"):
             out[name] = {k: _numpy(x) for k, x in v._asdict().items()}
         else:

@@ -13,7 +13,11 @@ through its plain version on the CPU.  Every random number comes from
 :meth:`LeggedEnv.draw`, which names each draw by the tag the JAX env folds
 into its key, so a test can substitute the JAX package's values.
 
-The sampling-based local planner (``_plan_local_targets``) is not ported yet.
+With ``commands.sampling_based_planning`` the batched local planner
+(``_plan_local_targets``) scores every candidate pose of every env at every
+step and keeps the planned target where ``do_plan`` holds.  It reads the
+scan stored in ``EnvState.measured_heights`` by the previous step, so a step
+pays one scan.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..terrain.heightfield import TerrainArrays, bf16_table, contact_window, to_
 from ..terrain.scan import scan_heights
 from ..terrain.tunnel import build_terrain
 from ..utils import quat as qt
+from ..utils.planner import ROBOT_SIZE
 from . import observations as obs_lib
 from .state import EnvState
 from .trajectories import TRAJ_FUNCTIONS
@@ -56,11 +61,12 @@ class LeggedEnv:
     """Static env build: holds config/model/terrain, exposes ``reset_fn`` /
     ``step_fn`` / ``observe`` on explicit states plus a stateful API."""
 
+    # the most bytes one chunk of the planner's candidate scores may hold
+    PLAN_CHUNK_BYTES = 2 ** 31
+
     def __init__(self, cfg: Cfg, terrain: TerrainArrays | None = None,
                  seed: int | None = None, device="cuda"):
         cfg.parse()
-        if cfg.commands.sampling_based_planning:
-            raise NotImplementedError("the sampling-based local planner is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = go1_model.make_go1_model(self.device)
@@ -137,7 +143,46 @@ class LeggedEnv:
             cfg.control.stiffness, cfg.control.damping,
             self.model.dof_effort, cfg.domain_rand.randomize_lag_timesteps)
         self._traj_fn = TRAJ_FUNCTIONS[cfg.commands.traj_function]
+        self._init_planner()
         self.state: EnvState | None = None
+
+    def _init_planner(self):
+        """Candidate poses and their quadform weights (reference :142-172).
+
+        quad(p) = f(p)·w_c with f = [x², y², z², xy, x, y, z, 1] is the
+        squared scaled distance of scan point p from candidate c in the
+        candidate's frame; the effective yaw is the quaternion's yaw (the
+        ±15° roll/pitch shift it ~2° from the euler yaw), as in the direct
+        form.  The weights are (8, C), C = 1,575 candidates."""
+        cfg, dev = self.cfg, self.device
+        cp = np.asarray(cfg.commands.candidate_target_poses, dtype=np.float64)
+        self._candidate_poses = torch.as_tensor(cp, dtype=torch.float32, device=dev)
+        self._robot_size = torch.as_tensor(ROBOT_SIZE, dtype=torch.float32, device=dev)
+        c32 = torch.as_tensor(cp, dtype=torch.float32)
+        qc = qt.quat_from_euler_xyz(c32[:, 3], c32[:, 4], c32[:, 5]).numpy().astype(np.float64)
+        ye = 2.0 * np.arctan2(qc[:, 2], qc[:, 3])        # quat is (x,y,z,w)
+        ca, sa = np.cos(ye), np.sin(ye)
+        sx, sy, sz = (float(v) for v in np.asarray(ROBOT_SIZE, np.float32))
+        a = ca ** 2 / sx ** 2 + sa ** 2 / sy ** 2
+        c_ = sa ** 2 / sx ** 2 + ca ** 2 / sy ** 2
+        b = ca * sa * (1.0 / sx ** 2 - 1.0 / sy ** 2)
+        cx, cy, cz = cp[:, 0], cp[:, 1], cp[:, 2]
+        w = np.stack([
+            a, c_, np.full_like(a, 1.0 / sz ** 2), 2.0 * b,
+            -2.0 * (a * cx + b * cy), -2.0 * (b * cx + c_ * cy),
+            -2.0 * cz / sz ** 2,
+            a * cx ** 2 + c_ * cy ** 2 + 2.0 * b * cx * cy + cz ** 2 / sz ** 2,
+        ])                                               # (8, C)
+        self._cand_quad_w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        # candidates per chunk: the JAX package's 45 was sized for the TPU's
+        # HBM; here a chunk's (N, 2P, chunk) float32 scores stay within
+        # PLAN_CHUNK_BYTES (7 chunks of 225 at 4096 envs x 462 points), since
+        # the host pays for every launch of the host-bound rollout
+        C = cp.shape[0]
+        two_p = 2 * self.height_points.shape[0]
+        per_cand = self.num_envs * two_p * 4
+        fit = max(1, self.PLAN_CHUNK_BYTES // per_cand)
+        self._plan_chunk = max(c for c in range(1, C + 1) if C % c == 0 and c <= fit)
 
     # ------------------------------------------------------------------ rng
     def draw(self, tag: tuple, shape: tuple, lo, hi, integer: bool = False) -> torch.Tensor:
@@ -234,7 +279,8 @@ class LeggedEnv:
             mixed = ct.cl_start_target_dist + u * torch.clamp(
                 dist_i - ct.cl_start_target_dist, min=0.0)
             dist_i = torch.where(torch.arange(N, device=dev) < n_mix, mixed, dist_i)
-        traj = self._traj_fn(base_pos, cfg, dist_i[:, None])
+        traj = self._traj_fn(lambda *a, **k: self.draw(*a, **k), tag + (14,), base_pos, cfg,
+                             self.terrain, dist_i[:, None])
 
         act = actuators.init_actuator_state(cfg.domain_rand.lag_timesteps, N, device=dev)
         return phys, act, traj
@@ -269,6 +315,11 @@ class LeggedEnv:
         zb = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=dev)
         scale = lambda i: torch.tensor(self.reward_scales[i] if i >= 0 else 0.0,
                                        dtype=torch.float32, device=dev)
+        if cfg.commands.sampling_based_planning:
+            # the planner's first step reads this scan (reference :400-403)
+            mh = self._get_heights(phys.base_pos, qt.quaternion_to_roll_pitch_yaw(phys.base_quat))
+        else:
+            mh = None
         return EnvState(
             phys=phys, act=act,
             friction=fric, restitution=rest, payload=payload, com_displacement=com,
@@ -293,6 +344,7 @@ class LeggedEnv:
             exploration_yaw_scale=scale(self._exp_yaw_idx),
             target_dist=target_dist,
             episode_sums=z(N, K),
+            measured_heights=mh,
         )
 
     # ------------------------------------------------------------ step core
@@ -334,6 +386,94 @@ class LeggedEnv:
         if ct == "6dof":
             return torch.cat([rel_lin[:, :2], target[:, 2:5], rel_rot[:, 2:]], dim=-1)
         raise ValueError(ct)
+
+    def _plan_local_targets(self, state, target, rel_lin, base_pos, base_quat, base_rpy,
+                            measured_heights, ep_len):
+        """Batched sampling-based local planner (reference _plan_target_pose,
+        :850-920, a per-env loop there; a masked argmin here, JAX :480-550).
+
+        Every env scores every candidate at every step; ``do_plan`` selects
+        which envs take the result.  A candidate is valid when every scan
+        point (both layers) lies outside its robot ellipsoid; the valid
+        candidate nearest the goal wins (z does not enter the metric, so
+        the first of equal candidates wins, as in the JAX package)."""
+        cfg = self.cfg
+        N = base_pos.shape[0]
+        norm = lambda x: torch.sqrt(torch.sum(x * x, dim=-1))    # XLA's sum of squares
+        plan_length = state.plan_length + 1
+        close = norm(rel_lin[:, :2]) < 1.0
+        ep_start = ep_len == 1
+        if cfg.commands.plan_interval > 0:
+            replan = (plan_length % cfg.commands.plan_interval) == 0
+            do_plan = ep_start | (replan & state.plan_buf)
+        else:
+            replan = torch.ones_like(ep_start)
+            do_plan = ep_start | state.plan_buf
+        plan_length = torch.where(do_plan, 0, plan_length)
+
+        cands = self._candidate_poses                        # (C, 6)
+        goal_xy = target[:, :2] - base_pos[:, :2]
+        sort_metric = (norm(cands[None, :, :2] - goal_xy[:, None, :])
+                       + norm(cands[None, :, 3:]) * 0.1)     # (N, C)
+        valid = self.candidates_valid(self.scan_points(measured_heights))
+        best = torch.argmin(sort_metric + 1e6 * (~valid), dim=-1)
+        any_valid = torch.any(valid, dim=-1)
+        chosen = cands[best]                                 # (N, 6)
+        # to world frame (:904-906)
+        world_xy = qt.quat_apply_yaw(base_quat, chosen[:, :3])[:, :2] + base_pos[:, :2]
+        world_rot = qt.wrap_to_pi(chosen[:, 3:] + base_rpy)
+        planned = torch.cat([world_xy, chosen[:, 2:3], world_rot], dim=-1)
+        planned = torch.where((any_valid & ~close)[:, None], planned, target)
+        local = torch.where(do_plan[:, None], planned, state.local_target_poses)
+        return local, plan_length, replan
+
+    def scan_points(self, measured_heights):
+        """(N, 2, nx, ny) scan -> (N, 2P, 3) points in the base frame: the
+        grid with the ceiling layer's z, then with the floor layer's."""
+        N = measured_heights.shape[0]
+        P = self.height_points.shape[0]
+        xy = self.height_points[None].expand(N, P, 2)
+        return torch.cat([torch.cat([xy, measured_heights[:, i].reshape(N, P, 1)], dim=-1)
+                          for i in (0, 1)], dim=1)
+
+    def candidates_valid(self, pts, quadform: bool | None = None):
+        """(N, 2P, 3) points -> (N, C) bool: every point outside candidate
+        c's ellipsoid.  ``quadform`` (default ``commands.planner_quadform``)
+        scores q = f(p)·w_c, one float32 product per chunk of candidates;
+        otherwise the direct form rotates and scales every difference, the
+        quadform's plain version (the reference's ``quat_apply_yaw_inverse``
+        and norm, component by component)."""
+        if quadform is None:
+            quadform = self.cfg.commands.planner_quadform
+        C = self._candidate_poses.shape[0]
+        chunks = []
+        if quadform:
+            x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+            F = torch.stack([x * x, y * y, z * z, x * y, x, y, z, torch.ones_like(x)], dim=-1)
+            for i in range(0, C, self._plan_chunk):
+                q = torch.matmul(F, self._cand_quad_w[:, i:i + self._plan_chunk])  # (N, 2P, c)
+                # all(q > 1) over the points, as one reduction
+                chunks.append(torch.amin(q, dim=1) > 1.0)
+        else:
+            cands = self._candidate_poses
+            # the yaw-only quaternions (0, 0, qz, qw) of the candidates
+            cq = qt.quat_yaw_only(qt.quat_from_euler_xyz(cands[:, 3], cands[:, 4], cands[:, 5]))
+            px, py, pz = (pts[:, None, :, i] for i in range(3))            # (N, 1, 2P)
+            sx, sy, sz = self._robot_size
+            # about eight (N, c, 2P) temporaries live at once
+            step = max(1, self._plan_chunk // 8)
+            for i in range(0, C, step):
+                qz, qw = cq[i:i + step, 2, None], cq[i:i + step, 3, None]  # (c, 1)
+                cl = cands[i:i + step]
+                dx, dy, dz = (p - cl[:, j, None] for j, p in enumerate((px, py, pz)))
+                # quat_rotate_inverse(q, d) = d - w t + xyz × t with
+                # t = 2 xyz × d, written out for xyz = (0, 0, qz)
+                tx, ty = 2.0 * -(qz * dy), 2.0 * (qz * dx)
+                rx = (dx - qw * tx) - qz * ty
+                ry = (dy - qw * ty) + qz * tx
+                r2 = torch.square(rx / sx) + torch.square(ry / sy) + torch.square(dz / sz)
+                chunks.append(torch.all(torch.sqrt(r2) > 1.0, dim=-1))
+        return torch.cat(chunks, dim=1)
 
     def step_fn(self, state: EnvState, actions: torch.Tensor):
         cfg = self.cfg
@@ -381,12 +521,24 @@ class LeggedEnv:
         projected_gravity = qt.quat_rotate_inverse(base_quat, g_unit.expand(N, 3))
         base_rpy = qt.quaternion_to_roll_pitch_yaw(base_quat)
 
-        # ---- callback (:774-848), no-planner branch ----
+        # ---- callback (:774-848) ----
+        planning = cfg.commands.sampling_based_planning
         idx = state.curr_pose_index
         target = self._select_waypoint(state.trajectories, idx)
         rel_lin, rel_rot = self._relative_pose(target, base_pos, base_quat, base_rpy)
-        local_target, plan_length, replan = target, state.plan_length, state.replan
-        local_rel_lin, local_rel_rot = rel_lin, rel_rot
+        if planning:
+            # the scan stored by the previous step, at this step's
+            # pre-physics pose; planner_rescan scans again (the A/B knob)
+            measured_heights = (self._get_heights(base_pos, base_rpy)
+                                if cfg.commands.planner_rescan else state.measured_heights)
+            local_target, plan_length, replan = self._plan_local_targets(
+                state, target, rel_lin, base_pos, base_quat, base_rpy, measured_heights,
+                ep_len)
+            local_rel_lin, local_rel_rot = self._relative_pose(
+                local_target, base_pos, base_quat, base_rpy)
+        else:
+            local_target, plan_length, replan = target, state.plan_length, state.replan
+            local_rel_lin, local_rel_rot = rel_lin, rel_rot
         commands = self._commands(local_target, local_rel_lin, local_rel_rot)
 
         # push robots (:1074-1084) — affects the next physics step only
@@ -611,6 +763,7 @@ class LeggedEnv:
             exploration_lin_scale=exp_lin, exploration_yaw_scale=exp_yaw,
             target_dist=state.target_dist,
             episode_sums=episode_sums,
+            measured_heights=mh_o if planning else None,
         )
         return new_state, StepOut(obs=obs, privileged_obs=priv, obs_history=obs_history,
                                   rew=rew, done=done, info=info)

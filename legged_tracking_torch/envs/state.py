@@ -74,3 +74,8 @@ class EnvState(NamedTuple):
 
     # --- episodic metric accumulators ---
     episode_sums: torch.Tensor      # (N, K) per active reward term + totals
+
+    # --- the height scan the local planner reads (None without the
+    # planner): the previous step's post-reset scan, so each step pays one
+    # scan (the JAX package's EnvState.measured_heights) ---
+    measured_heights: torch.Tensor | None = None  # (N, 2, nx, ny)

@@ -105,10 +105,15 @@ class ActorCriticCSE(nn.Module):
 
 def clamp_std(std, args):
     """Floor (numerics) and optional ceiling (ACArgs.max_noise_std) for the
-    learned state-independent exploration std."""
-    s = torch.clamp(torch.abs(std), min=1e-3)
+    learned state-independent exploration std.  ``maximum``/``minimum``, as
+    in the JAX package, and not ``clamp``: at a tie (the initial std of 1.0
+    under a ceiling of 1.0) they pass half the gradient, ``clamp`` all of it.
+    The bounds are filled on the device (``full_like``): a tensor made from
+    a host scalar is a copy the host waits for."""
+    s = torch.abs(std)
+    s = torch.maximum(s, torch.full_like(s, 1e-3))
     if getattr(args, "max_noise_std", None) is not None:
-        s = torch.clamp(s, max=args.max_noise_std)
+        s = torch.minimum(s, torch.full_like(s, args.max_noise_std))
     return s
 
 

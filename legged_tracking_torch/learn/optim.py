@@ -60,9 +60,9 @@ def adam_step(params: dict, grads: list, state: AdamState, lr, b1: float = 0.9,
     p = list(params.values())
     # mu = (1 - b1) * g + b1 * mu ;  nu = (1 - b2) * g**2 + b2 * nu
     mu = torch._foreach_mul(grads, c1)
-    torch._foreach_add_(mu, torch._foreach_mul(list(state.mu.values()), float(f32(b1))))
+    torch._foreach_add_(mu, torch._foreach_mul([state.mu[k] for k in params], float(f32(b1))))
     nu = torch._foreach_mul(torch._foreach_mul(grads, grads), c2)
-    torch._foreach_add_(nu, torch._foreach_mul(list(state.nu.values()), float(f32(b2))))
+    torch._foreach_add_(nu, torch._foreach_mul([state.nu[k] for k in params], float(f32(b2))))
     # (mu / bc1) / (sqrt(nu / bc2) + eps) * -lr
     upd = torch._foreach_div(mu, bc1)
     den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))

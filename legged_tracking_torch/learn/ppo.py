@@ -100,7 +100,11 @@ class PPO:
     """Holds the policy of an env and runs its train iterations."""
 
     def __init__(self, env, ac_args: ACArgs | None = None, args: PPOArgs | None = None,
-                 ac: ActorCriticCSE | None = None, seed: int = 0):
+                 ac: torch.nn.Module | None = None, seed: int = 0):
+        """``ac``: the policy (``ActorCriticCSE`` or ``ActorCriticCNN``: any
+        module with ``action_dist``, ``evaluate``, ``adapt``,
+        ``act_student`` and ``act_teacher``); the CSE MLP of ``ac_args``
+        when None."""
         self.env = env
         self.args = args or PPOArgs()
         if self.args.cheap_shuffle:

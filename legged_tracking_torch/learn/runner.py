@@ -8,10 +8,15 @@ best-score snapshot, and applies the fix-target curriculum
 (update_curriculum, legged_robot_trajectory_tracking.py:186-196) from the
 reached statistics of each iteration.
 
-Checkpoints are pickles of numpy leaves only (parameters under the
-module's names, both Adam states, the learning rate, the iteration, the
-curriculum state and the obs normalizer); ``policy.npz`` has the JAX
-package's deployment layout.  The runner is held against the JAX package,
+Checkpoints are pickles of numpy leaves only: the parameters as the JAX
+package's checkpoints hold them (the flax tree, :mod:`..io.checkpoint`),
+the learning rate, the iteration, the curriculum state and the obs
+normalizer under the JAX keys, and both Adam states (moments as flax trees)
+under keys of their own, ``adam_state`` and ``adapt_adam_state``.  So the
+JAX Runner resumes a port checkpoint (with fresh Adam moments, its fallback
+for a checkpoint without ``opt_state``), and the port resumes a JAX one,
+its optax states included.  ``policy.npz`` has the JAX package's
+deployment layout.  The runner is held against the JAX package,
 so it keeps that package's runner behaviour, the four faults ADVICE.md
 lists included (ROADMAP.md §C).
 """
@@ -28,10 +33,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..io.checkpoint import export_policy_npz
+from ..io.checkpoint import (adam_from_checkpoint, adam_to_checkpoint, export_policy_npz,
+                             flax_params_to_state_dict, state_dict_to_flax_params)
 from .actor_critic import ACArgs
 from .metrics_caches import DistCache, SlotCache
-from .optim import AdamState
 from .ppo import PPO, PPOArgs, copy_state
 from .utils import RunningMeanStd
 
@@ -50,16 +55,6 @@ class RunnerArgs:
     # critic-only warmup iterations after a resume, before any policy
     # gradient flows (resume-shock mitigation); 0 disables
     critic_warmup_iters: int = 0
-
-
-def _adam_numpy(s: AdamState) -> dict:
-    leaves = lambda d: {k: v.detach().cpu().numpy() for k, v in d.items()}
-    return {"count": s.count, "mu": leaves(s.mu), "nu": leaves(s.nu)}
-
-
-def _adam_tensors(d: dict, device) -> AdamState:
-    tensors = lambda m: {k: torch.as_tensor(v, device=device) for k, v in m.items()}
-    return AdamState(count=int(d["count"]), mu=tensors(d["mu"]), nu=tensors(d["nu"]))
 
 
 class Runner:
@@ -152,9 +147,9 @@ class Runner:
             target_dist = (float(self.env_state.target_dist)
                            if self.env_state is not None else 0.0)
         ckpt = {
-            "params": {k: v.detach().cpu().numpy() for k, v in ts.params.items()},
-            "opt_state": _adam_numpy(ts.opt_state),
-            "adapt_opt_state": _adam_numpy(ts.adapt_opt_state),
+            "params": state_dict_to_flax_params(ts.params),
+            "adam_state": adam_to_checkpoint(ts.opt_state),
+            "adapt_adam_state": adam_to_checkpoint(ts.adapt_opt_state),
             "learning_rate": float(ts.learning_rate),
             "iteration": int(ts.iteration),
             "target_dist": float(target_dist),
@@ -171,9 +166,10 @@ class Runner:
         with open(path, "rb") as f:
             ckpt = pickle.load(f)
         ts = self.train_state
+        saved = flax_params_to_state_dict(ckpt["params"])
         with torch.no_grad():
             for k, p in ts.params.items():
-                p.copy_(torch.as_tensor(ckpt["params"][k]))
+                p.copy_(saved[k])
         ts = ts._replace(learning_rate=self._rep(ckpt["learning_rate"]),
                          iteration=int(ckpt["iteration"]))
         if "obs_rms" in ckpt and ts.obs_rms is not None:
@@ -183,11 +179,15 @@ class Runner:
         self._pending_curriculum = ckpt.get("curriculum_weights") if resume_cl else None
         self._pending_target_dist = ckpt.get("target_dist") if resume_cl else None
         # Adam moments and the adaptation optimizer resume too (reference
-        # ppo_cse/__init__.py:97-104); checkpoints without them keep fresh ones
-        if "opt_state" in ckpt:
-            ts = ts._replace(opt_state=_adam_tensors(ckpt["opt_state"], self.device),
-                             adapt_opt_state=_adam_tensors(ckpt["adapt_opt_state"],
-                                                           self.device))
+        # ppo_cse/__init__.py:97-104): the port's own, or the optax states of
+        # a JAX checkpoint; checkpoints without them keep fresh ones
+        for key, opt, adapt in (("adam_state", "opt_state", "adapt_opt_state"),
+                                ("opt_state", "opt_state", "adapt_opt_state")):
+            if key in ckpt:
+                ts = ts._replace(**{opt: adam_from_checkpoint(ckpt[key], self.device),
+                                    adapt: adam_from_checkpoint(ckpt["adapt_" + key],
+                                                                self.device)})
+                break
         self.train_state = ts
 
     # ----------------------------------------------------------------- loop

@@ -2,7 +2,9 @@
 
 ``CRAWLING_REWARDS`` mirrors RewardsCrawling
 (go1_gym/envs/rewards/reward_crawling.py:9-123), the container of the
-tunnel task.  Each term is ``fn(ctx: RewardCtx, cfg) -> (N,)``; the env
+tunnel task; ``TRAJECTORY_TRACKING_REWARDS`` mirrors
+TrajectoryTrackingRewards (trajectory_tracking_reward.py:9-171), the
+container of the goal and planner recipes.  Each term is ``fn(ctx: RewardCtx, cfg) -> (N,)``; the env
 keeps the non-zero-scaled subset.
 """
 
@@ -57,8 +59,16 @@ def _torques(ctx, cfg):
     return torch.sum(torch.square(ctx.torques), dim=1)
 
 
+def _dof_vel(ctx, cfg):
+    return torch.sum(torch.square(ctx.dof_vel), dim=1)
+
+
 def _dof_acc(ctx, cfg):
     return torch.sum(torch.square((ctx.last_dof_vel - ctx.dof_vel) / ctx.dt), dim=1)
+
+
+def _dof_pos(ctx, cfg):
+    return torch.sum(torch.square(ctx.dof_pos - ctx.default_dof_pos), dim=1)
 
 
 def _dof_pos_limits(ctx, cfg):
@@ -83,6 +93,10 @@ def _base_height(ctx, cfg):
 
 def _ang_vel_xy(ctx, cfg):
     return torch.sum(torch.square(ctx.base_ang_vel[:, :2]), dim=1)
+
+
+def _lin_vel_z(ctx, cfg):
+    return torch.square(ctx.base_lin_vel[:, 2])
 
 
 def _orientation(ctx, cfg):
@@ -159,6 +173,67 @@ def _reaching_pitch(ctx, cfg):
     return torch.square(ctx.relative_rotation[:, 1])
 
 
+def _reaching_yaw_abs(ctx, cfg):
+    return torch.square(ctx.relative_rotation[:, 2])
+
+
+def _reach_goal(ctx, cfg):
+    return ctx.reached_buf.float()
+
+
+def _reach_goal_t(ctx, cfg):
+    return ctx.reached_buf * ctx.episode_length_buf.float()
+
+
+def _reach_goal_T(ctx, cfg):
+    return ctx.reached_buf * (ctx.episode_length_buf > cfg.rewards.T_reach).float()
+
+
+def _task(ctx, cfg):
+    tv, _ = _target_lin_vel(ctx, cfg)
+    err = torch.sum(torch.square(tv - ctx.base_lin_vel[:, :2]), dim=-1)
+    in_dist = _norm(ctx.relative_linear[:, :2]) < cfg.rewards.large_dist_threshold
+    return torch.exp(-err / cfg.rewards.tracking_sigma_lin) * in_dist
+
+
+def _exploration(ctx, cfg):
+    base = ctx.base_lin_vel[:, :2]
+    local = ctx.local_relative_linear[:, :2]
+    r = torch.sum(base * local, dim=1)
+    r = r / (_norm(local) + EPS)
+    r = r / (_norm(base) + EPS)
+    return r * (_norm(base) > cfg.rewards.small_vel_threshold)
+
+
+def _reaching_local_goal(ctx, cfg):
+    return (ctx.plan_buf & ctx.replan).float()
+
+
+def _stalling(ctx, cfg):
+    small = _norm(ctx.base_lin_vel[:, :2]) < cfg.rewards.small_vel_threshold
+    far = _norm(ctx.relative_linear[:, :2]) > cfg.rewards.large_dist_threshold
+    return -(small & far).float()
+
+
+def _linear_vel(ctx, cfg):
+    return (_norm(ctx.base_lin_vel[:, :3]) > 0.7).float()
+
+
+def _survive(ctx, cfg):
+    return torch.ones_like(ctx.reset_buf, dtype=torch.float32)
+
+
+def _feet_air_time(ctx, cfg):
+    """Reward long swing phases on first contact
+    (trajectory_tracking_reward.py:115-126); the env step keeps the air time."""
+    return torch.sum((ctx.feet_air_time - 0.5) * ctx.feet_first_contact, dim=1)
+
+
+def _reaching_linear_vel(ctx, cfg):
+    tv, _ = _target_lin_vel(ctx, cfg)
+    return _vel_form(tv, ctx.base_lin_vel[:, :2], cfg)
+
+
 CRAWLING_REWARDS = {
     "dof_acc": _dof_acc,
     "torques": _torques,
@@ -178,7 +253,43 @@ CRAWLING_REWARDS = {
 }
 
 
+TRAJECTORY_TRACKING_REWARDS = {
+    "torques": _torques,
+    "dof_vel": _dof_vel,
+    "dof_acc": _dof_acc,
+    "dof_pos": _dof_pos,
+    "collision": _collision,
+    "action_rate": _action_rate,
+    "dof_pos_limits": _dof_pos_limits,
+    "orientation": _orientation,
+    "reach_goal": _reach_goal,
+    "reach_goal_t": _reach_goal_t,
+    "reach_goal_T": _reach_goal_T,
+    "task": _task,
+    "exploration": _exploration,
+    "reaching_local_goal": _reaching_local_goal,
+    "stalling": _stalling,
+    "linear_vel": _linear_vel,
+    "lin_vel_z": _lin_vel_z,
+    "ang_vel_xy": _ang_vel_xy,
+    "feet_air_time": _feet_air_time,
+    "survive": _survive,
+    "reaching_linear_vel": _reaching_linear_vel,
+    "reaching_z": _reaching_z,
+    "reaching_roll": _reaching_roll,
+    "reaching_pitch": _reaching_pitch,
+    "reaching_yaw_abs": _reaching_yaw_abs,
+    "exploration_yaw": _exploration_yaw,
+    "reaching_yaw": _exploration_yaw,
+}
+
+
 def get_container(name: str) -> dict:
-    if name != "RewardsCrawling":
+    containers = {
+        "RewardsCrawling": CRAWLING_REWARDS,
+        "TrajectoryTrackingRewards": TRAJECTORY_TRACKING_REWARDS,
+    }
+    if name not in containers:
+        # CoRLRewards belongs to the velocity env (ROADMAP queue A)
         raise NotImplementedError(f"reward container {name} is not ported yet")
-    return CRAWLING_REWARDS
+    return containers[name]

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.planner import valid_checking
 from .heightfield import TerrainArrays, plane_terrain
 
 
@@ -212,16 +213,22 @@ def build_tunnel_terrain(tcfg, num_envs: int, seed: int = 0, device="cuda") -> T
     # paste windows into tile centres
     sx = int(round((0.5 - tcfg.terrain_ratio_x / 2.0) * length_px, 4))
     sy = int((0.5 - tcfg.terrain_ratio_y / 2.0) * width_px)
-    if tcfg.valid_tunnel_only:
-        # the traversability check (tunnel.py:107-124) needs utils/planner.py,
-        # which the port does not carry yet
-        raise NotImplementedError("valid_tunnel_only")
     for k in range(n_tiles):
         difficulty = rng.uniform(0.0, 1.0)
-        top = gen(True, difficulty)
-        bottom = gen(False, difficulty)
-        # ceiling flip + minimum ground clearance (tunnel.py:96-98)
-        top = np.clip(tcfg.ceiling_height - top, 0.05, None)
+        valid = False
+        while not valid:
+            top = gen(True, difficulty)
+            bottom = gen(False, difficulty)
+            # ceiling flip + minimum ground clearance (tunnel.py:96-98)
+            top = np.clip(tcfg.ceiling_height - top, 0.05, None)
+            valid = True
+            if tcfg.valid_tunnel_only:
+                # traversability check (tunnel.py:107-124; OMPL there)
+                start = np.array([-0.375 * win_len_m, 0, 0.27, 0, 0, 0, 1.0])
+                goal = np.array([0.375 * win_len_m, 0, 0.27, 0, 0, 0, 1.0])
+                valid = valid_checking(np.stack([top, bottom]), start, goal,
+                                       tcfg.terrain_length, tcfg.terrain_width,
+                                       tcfg.terrain_ratio_y, hs)
         tiles[k, 0, sx:sx + win_x, sy:sy + win_y] = top
         tiles[k, 1, sx:sx + win_x, sy:sy + win_y] = bottom
 

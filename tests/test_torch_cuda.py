@@ -258,3 +258,140 @@ def test_train_iteration_on_card_is_finite(cuda_device):
         assert v.device.type == "cuda" and bool(torch.isfinite(v.float()).all()), k
     assert all(not torch.equal(v, start[k]) for k, v in ts.params.items())
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+
+
+def goal_cfg(num_envs, tiles=2):
+    """The published goal recipe (stage A of ``tools/goal_recipe.sh``):
+    random_pyramid tiles of 100x32 cells, the default policy's obs."""
+    from legged_tracking_torch import train
+    return train.build_cfg(train.parse_args([
+        "--strategy", "goal", "--terrain", "random_pyramid", "--num_envs", str(num_envs),
+        "--max_noise_std", "1.0", "--cl_goal_target_dist", "3.8", "--cl_downstep", "0.5",
+        "--terrain_rows", str(tiles), "--terrain_cols", str(tiles)]))
+
+
+def hierarchy_cfg(num_envs, tiles=2, plan_interval=100):
+    """``train_hierarchy``'s configuration: the planner on, random_pyramid
+    tiles of 100x32 cells."""
+    from legged_tracking_torch import train_hierarchy
+    return train_hierarchy.build_cfg(train_hierarchy.parse_args([
+        "--num_envs", str(num_envs), "--terrain_rows", str(tiles), "--terrain_cols", str(tiles),
+        "--plan_interval", str(plan_interval)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,num_envs", [("goal", 4096), ("hierarchy", 4000)])
+def test_scan_kernel_bitwise_on_new_paths(cuda_device, path, num_envs):
+    """Kernel B1 == its plain version, bitwise, at the shapes the goal and
+    planner paths give it: random_pyramid tiles of 100x32 cells, and 4000
+    envs (500 blocks of 8 where the bench's 4096 launch 512; the tail
+    blocks of odd counts are the sweep's); bases on the tiles, at the spawn
+    points and off the tiles."""
+    cfg = (goal_cfg if path == "goal" else hierarchy_cfg)(num_envs, tiles=4)
+    tt = build_terrain(cfg, num_envs, seed=1, device=cuda_device)
+    table = hf.bf16_table(tt)
+    assert tuple(table.shape[2:]) == (100, 32)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    third = num_envs // 3
+    base = tt.env_origin[:, :2].clone()
+    base[:third] += torch.rand(third, 2, generator=g, device=cuda_device) - 0.5
+    base[2 * third:] += 10.0
+    pitch = torch.rand(num_envs, generator=g, device=cuda_device) - 0.5
+    pitch[third:2 * third] = 0.0
+    cam = torch.stack([0.12 * torch.cos(pitch), torch.zeros_like(pitch)], -1)
+    frames = torch.stack([base, cam, tt.env_terrain_origin[:, :2]], 1).contiguous()
+    gx, gy = np.meshgrid(cfg.terrain.measured_points_x, cfg.terrain.measured_points_y,
+                         indexing="ij")
+    grid = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32),
+                           device=cuda_device)
+    args = (table, tt.env_tile, frames, grid, tt.horizontal_scale)
+    out = scan.scan_heights(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, scan.scan_heights_reference(*args))
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    assert torch.equal(out.cpu(), scan.scan_heights_reference(*cpu_args))
+
+
+@pytest.mark.cuda
+def test_planner_quadform_matches_direct_on_card(cuda_device):
+    """The planner's quadform validity (one float32 cuBLAS product per
+    chunk of candidates) equals its direct form on the card, and the card's
+    quadform equals the CPU's, on 256 envs of the hierarchy configuration
+    moved into the obstacle window and turned: zero mismatches in 256 x
+    1,575 candidates."""
+    from legged_tracking_torch.utils import quat as qt
+
+    n = 256
+    env = LeggedEnv(hierarchy_cfg(n), seed=3, device=cuda_device)
+    state = env.reset_fn(True)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    base_pos = state.phys.base_pos + torch.cat(
+        [torch.rand(n, 1, generator=g, device=cuda_device) * 2.5,
+         torch.rand(n, 1, generator=g, device=cuda_device) * 0.6 - 0.3,
+         torch.zeros(n, 1, device=cuda_device)], dim=1)
+    yaw = torch.rand(n, generator=g, device=cuda_device) * 1.6 - 0.8
+    quat = qt.quat_from_angle_axis(yaw, torch.tensor([0.0, 0.0, 1.0], device=cuda_device)
+                                   .expand(n, 3))
+    pts = env.scan_points(env._get_heights(base_pos, qt.quaternion_to_roll_pitch_yaw(quat)))
+    quad = env.candidates_valid(pts, quadform=True)
+    direct = env.candidates_valid(pts, quadform=False)
+    assert int((quad != direct).sum()) == 0
+    assert 0 < int(quad.sum()) < quad.numel()
+    cpu_env = LeggedEnv(hierarchy_cfg(n), seed=3, device="cpu")
+    assert torch.equal(cpu_env.candidates_valid(pts.cpu(), quadform=True), quad.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cnn,use_gru", [(False, False), (True, False), (False, True),
+                                             (True, True)],
+                         ids=["mlp", "conv", "mlp_gru", "conv_gru"])
+def test_cnn_policy_on_card_matches_cpu(cuda_device, use_cnn, use_gru):
+    """The four ActorCriticCNN variants on the card (cuDNN convolutions,
+    TF32 off) against the same weights on the CPU, on a 3-frame history of
+    the goal recipe's obs: atol 1e-5 on O(1) outputs, as the CPU against
+    the flax module (tests/test_torch_policy_cnn.py)."""
+    from legged_tracking_torch.learn.actor_critic_cnn import ACCnnArgs, ActorCriticCNN
+
+    num_obs, num_priv = 261, 6
+    torch.manual_seed(0)
+    cpu = ActorCriticCNN(num_obs, num_priv, 3 * num_obs, 12, args=ACCnnArgs(
+        use_cnn=use_cnn, use_gru=use_gru, height_map_shape=(2, 10, 11), max_noise_std=1.0))
+    card = ActorCriticCNN(num_obs, num_priv, 3 * num_obs, 12, args=cpu.args).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    o, p, h = (torch.randn(64, n, generator=g) for n in (num_obs, num_priv, 3 * num_obs))
+    with torch.no_grad():
+        want = (*cpu.action_dist(o, p, h), cpu.evaluate(o, p, h), cpu.adapt(h))
+        got = (*card.action_dist(*(x.to(cuda_device) for x in (o, p, h))),
+               card.evaluate(*(x.to(cuda_device) for x in (o, p, h))),
+               card.adapt(h.to(cuda_device)))
+    for name, a, b in zip(("mean", "std", "value", "adapt"), got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_goal_train_iteration_on_card_is_finite(cuda_device):
+    """A whole train_iteration of 64 envs of the goal recipe on the card,
+    with its default policy (ActorCriticCNN, MLP encoder): finite metrics,
+    parameters that moved, and kernel B1 launched once per rollout step."""
+    from legged_tracking_torch import train
+    from legged_tracking_torch.learn.ppo import PPO
+
+    args = train.parse_args(["--strategy", "goal", "--terrain", "random_pyramid",
+                             "--num_envs", "64", "--terrain_rows", "4", "--terrain_cols", "4"])
+    cfg = train.build_cfg(args)
+    env = LeggedEnv(cfg, seed=3, device=cuda_device)
+    alg = PPO(env, ac=train.make_policy(args, cfg, env), seed=0)
+    assert type(alg.ac).__name__ == "ActorCriticCNN"
+    ts = alg.init()
+    start = {k: v.detach().clone() for k, v in ts.params.items()}
+    state = env.reset_fn(True)
+    obs = env.observe(state)
+    before = scan.scan_heights.launches
+    ts, state, obs, metrics = alg.train_iteration(ts, state, obs)
+    torch.cuda.synchronize()
+    assert scan.scan_heights.launches == before + alg.args.num_steps_per_env
+    for k, v in metrics.items():
+        assert v.device.type == "cuda" and bool(torch.isfinite(v.float()).all()), k
+    assert all(not torch.equal(v, start[k]) for k, v in ts.params.items())
+    assert all(bool(torch.isfinite(v).all()) for v in obs.values())

@@ -31,7 +31,8 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "..", "assets", "goldens",
 
 class JaxDraws:
     """Stands in for the port's ``LeggedEnv.draw``: the value the JAX env
-    draws for the same tag, from the JAX env's keys."""
+    draws for the same tag, from the JAX env's keys.  A tag element
+    ``("split", n, i)`` takes the i-th of ``jax.random.split(key, n)``."""
 
     def __init__(self, reset_key, num_envs):
         gkey, ekey, lkey = jax.random.split(reset_key, 3)
@@ -64,7 +65,11 @@ class JaxDraws:
         else:
             keys = self.reset_keys if ns == "reset" else self.kstep
             for t in path:
-                keys = self._fold(keys, t)
+                if isinstance(t, tuple):          # ("split", n, i): split(key, n)[i]
+                    _, n, i = t
+                    keys = jax.vmap(lambda k: jax.random.split(k, n)[i])(keys)
+                else:
+                    keys = self._fold(keys, t)
             v = jax.vmap(lambda k: jax.random.uniform(k, shape[1:], minval=lo, maxval=hi))(keys)
         return torch.as_tensor(np.array(v))
 

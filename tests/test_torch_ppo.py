@@ -214,16 +214,16 @@ class Recorder:
         monkeypatch.setattr(t_ppo, name, wrapped)
 
 
-def jax_lr_sequence(jalg, jts, traj, returns, advs, perm):
+def jax_lr_sequence(jalg, step, jts, traj, returns, advs, perm):
     """The learning rate after each minibatch of JAX's ``update``: its
-    ``_minibatch_update`` run over the same permuted minibatches."""
+    ``_minibatch_update`` (``step(carry, batch)``) run over the same permuted
+    minibatches."""
     a = jalg.args
     T, N = traj.rewards.shape
     nm, mb = a.num_mini_batches, T * N // a.num_mini_batches
     grp = lambda x: x.reshape((T * N,) + x.shape[2:])[perm].reshape((nm, mb) + x.shape[2:])
     data = [grp(x) for x in (traj.obs, traj.obs_history, traj.privileged_obs, traj.actions,
                              traj.values, advs, returns, traj.log_prob, traj.mu, traj.sigma)]
-    step = jax.jit(jalg._minibatch_update)
     carry = (jts.params, jts.opt_state, jts.adapt_opt_state, jts.learning_rate)
     lrs = []
     for _ in range(a.num_learning_epochs):
@@ -231,6 +231,25 @@ def jax_lr_sequence(jalg, jts, traj, returns, advs, perm):
             carry, _ = step(carry, [x[i] for x in data])
             lrs.append(float(carry[3]))
     return lrs
+
+
+@pytest.fixture(scope="module")
+def jax_update(world):
+    """The jitted JAX ``compute_gae``, ``update`` and ``_minibatch_update``
+    shared by the update cases: desired_kl and max_grad_norm enter as traced
+    float32 arguments (the same values the cases' constants round to, and
+    the same arithmetic), so that the cases share one compile of each."""
+    jenv, _ = world
+
+    def alg(desired_kl, max_grad_norm):
+        return j_ppo.PPO(jenv, args=j_ppo.PPOArgs(desired_kl=desired_kl,
+                                                  max_grad_norm=max_grad_norm,
+                                                  num_steps_per_env=8))
+    gae = jax.jit(alg(0.01, 1.0).compute_gae)
+    update = jax.jit(lambda ts, traj, returns, advs, key, kl, norm: alg(kl, norm).update(
+        ts, traj, returns, advs, key))
+    step = jax.jit(lambda carry, batch, kl, norm: alg(kl, norm)._minibatch_update(carry, batch))
+    return gae, update, step
 
 
 def tree_rel_err(a, b):
@@ -260,7 +279,7 @@ def params_errors(got, want, start):
 @pytest.mark.parametrize("desired_kl,max_grad_norm", [
     (1e-5, 1.0), (1e-5, 1e4), (0.01, 1.0), (0.01, 1e4), (1e3, 1.0)],
     ids=["lr_down-clip", "lr_down-noclip", "lr_mixed-clip", "lr_mixed-noclip", "lr_up-clip"])
-def test_update_matches(world, monkeypatch, desired_kl, max_grad_norm):
+def test_update_matches(world, jax_update, monkeypatch, desired_kl, max_grad_norm):
     """One ``update`` (5 epochs x 4 minibatches) from a JAX-made 8x8
     trajectory with JAX's permutation, against the jitted JAX ``update``:
     parameters, both Adam states, the learning rate and the five losses.
@@ -285,12 +304,14 @@ def test_update_matches(world, monkeypatch, desired_kl, max_grad_norm):
     1.5e-5 (relative, or absolute below 1).  The limits are 5 to 10 times
     that."""
     jenv, tenv = world
+    gae, jupdate, jstep = jax_update
+    hyper = tuple(jnp.float32(x) for x in (desired_kl, max_grad_norm))
     T, N = 8, 8
     args = dict(desired_kl=desired_kl, max_grad_norm=max_grad_norm, num_steps_per_env=T)
     jalg = j_ppo.PPO(jenv, args=j_ppo.PPOArgs(**args))
     jts = jalg.init(jax.random.key(0))
     traj, last_values = jax_made_trajectory(jalg, jts.params, T, N, seed=2)
-    returns, advs = jax.jit(jalg.compute_gae)(traj, last_values)
+    returns, advs = gae(traj, last_values)
     key = jax.random.key(4)
     perm = np.asarray(jax.random.permutation(key, T * N))
     jts_np = jax.tree.map(np.asarray, jts)
@@ -307,7 +328,8 @@ def test_update_matches(world, monkeypatch, desired_kl, max_grad_norm):
                            torch.as_tensor(np.asarray(advs)), perm=torch.as_tensor(perm))
 
     lr_seq = [x for x in lrs.seen if x is not None]
-    assert lr_seq == jax_lr_sequence(jalg, jts, traj, returns, advs, perm)
+    assert lr_seq == jax_lr_sequence(jalg, lambda c, b: jstep(c, b, *hyper), jts, traj,
+                                     returns, advs, perm)
     up = [y > x for x, y in zip([1e-3] + lr_seq, lr_seq) if x != y]
     if desired_kl == 1e-5:
         assert not any(up) and lr_seq[-1] == np.float32(1e-5)
@@ -318,7 +340,7 @@ def test_update_matches(world, monkeypatch, desired_kl, max_grad_norm):
     clipped = [n >= max_grad_norm for n in norms.seen]
     assert len(clipped) == 20 and (any(clipped) if max_grad_norm == 1.0 else not any(clipped))
 
-    jts2, jm = jax.jit(jalg.update)(jts, traj, returns, advs, key)
+    jts2, jm = jupdate(jts, traj, returns, advs, key, *hyper)
     jts2 = jax.tree.map(np.asarray, jts2)
     back = convert.train_state_to_numpy(tts2, jts2)
     assert float(back.learning_rate) == float(jts2.learning_rate) == lr_seq[-1]

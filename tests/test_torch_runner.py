@@ -21,7 +21,7 @@ from legged_tracking_torch import train as t_train
 from legged_tracking_torch.config import Cfg as TCfg
 from legged_tracking_torch.config import config_go1 as t_config_go1
 from legged_tracking_torch.envs import LeggedEnv as TEnv
-from legged_tracking_torch.io.checkpoint import export_policy_npz
+from legged_tracking_torch.io.checkpoint import export_policy_npz, flax_params_to_state_dict
 from legged_tracking_torch.learn import ppo as t_ppo
 from legged_tracking_torch.learn.runner import Runner, RunnerArgs
 from legged_tracking_tpu.config import Cfg, config_go1
@@ -243,8 +243,9 @@ def test_best_checkpoint_file_is_the_snapshot(tmp_path):
     r.learn(3, verbose=False)
     with open(tmp_path / "ac_weights_best.pkl", "rb") as f:
         ckpt = pickle.load(f)
+    saved = flax_params_to_state_dict(ckpt["params"])
     for k, v in best.items():
-        np.testing.assert_array_equal(ckpt["params"][k], v, err_msg=k)
+        np.testing.assert_array_equal(saved[k].numpy(), v, err_msg=k)
     assert any(np.any(v != best[k]) for k, v in params_np(r.train_state).items())
     with open(tmp_path / "best.json") as f:
         assert json.load(f)["restores"] == 0
@@ -296,6 +297,11 @@ def test_train_entry_on_cpu(tmp_path):
         assert pickle.load(f)["iteration"] == 2
 
 
+# the modules of the first six cases are ported: the CNN/GRU policy, the
+# goal recipe's TrajectoryTrackingRewards, the planner and random_target
+PORTED = {"actor_critic_cnn", "TrajectoryTrackingRewards", "planner", "random_target"}
+
+
 @pytest.mark.parametrize("flags,module", [
     ([], "actor_critic_cnn"), (["--old_ppo", "--cnn"], "actor_critic_cnn"),
     (["--old_ppo", "--strategy", "goal"], "TrajectoryTrackingRewards"),
@@ -306,5 +312,11 @@ def test_train_entry_on_cpu(tmp_path):
     (["--old_ppo", "--num_devices", "4"], "A13"),
     (["--old_ppo", "--save_video_interval", "10"], "A12")])
 def test_train_entry_refuses_what_is_not_ported(flags, module):
+    """A flag whose module is not ported raises NotImplementedError naming
+    it; a flag whose module is ported passes the check."""
+    args = t_train.parse_args(flags + ["--device", "cpu"])
+    if module in PORTED:
+        t_train.check_supported(args)
+        return
     with pytest.raises(NotImplementedError, match=module):
-        t_train.main(t_train.parse_args(flags + ["--device", "cpu"]))
+        t_train.main(args)

@@ -176,7 +176,7 @@ def drive_port(env, case, logdir, metrics):
     r.alg.train_iteration = train_iteration
     r.learn(len(metrics), verbose=False, update_model=case["update_model"])
     trace.append(runner_state(r, r.train_state, r.env_state.target_dist, std(r.train_state)))
-    ckpt_std = lambda c: float(c["params"]["std"][0]) - std0
+    ckpt_std = lambda c: float(c["params"]["params"]["std"][0]) - std0
     return r.history, trace, ckpt_std
 
 

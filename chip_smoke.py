@@ -29,16 +29,20 @@ Phases, each printing one JSON line:
    CPU's within limits of 5 to 20 times the errors read on an H100.
 6. cnn-update-reference: the same for the goal configuration with
    ``ActorCriticCNN`` (conv encoder and GRU).
-7. planner: the local planner at 4096 envs x 462 scan points x 1,575
+7. velocity-reference: the same for the velocity env (8 envs, curriculum
+   resamples every 2 steps, 5-step episodes) with the CSE policy; the
+   curriculum's weights, bins and categories and the commands bitwise.
+8. rma-update-reference: the same with ``ActorCriticRMA``.
+9. planner: the local planner at 4096 envs x 462 scan points x 1,575
    candidates: the quadform's validity against the direct form's (zero
    mismatches), the device time of one ``_plan_local_targets`` (CUDA
    events) beside its byte reckoning, and its peak memory.
-8. planner-reference: 8 envs of the hierarchy configuration, replanning
+10. planner-reference: 8 envs of the hierarchy configuration, replanning
    every 2 steps, stepped 5 times on the card and on the CPU from one
    state with the same draws: the same choices, and obs, rewards, base
    positions and local targets within limits of 5 to 20 times the
    readings on an H100.
-9. train: the main path.  The bench configuration at 4096 envs trained by
+11. train: the main path.  The bench configuration at 4096 envs trained by
    the port's ``Runner.learn`` for 4 iterations into a temporary logdir.
    Checks finite metrics, parameters that moved, the scan launched 24
    times an iteration and once at the Runner's observe, metrics.jsonl, a
@@ -46,17 +50,22 @@ Phases, each printing one JSON line:
    over the iterations after the first (host clock, each iteration between
    two synchronizes), their rollout/update split (CUDA events, no barrier
    inside an iteration) and the peak memory.
-10. train-goal: the goal path, stage A of ``tools/goal_recipe.sh`` at 4096
+12. train-goal: the goal path, stage A of ``tools/goal_recipe.sh`` at 4096
    envs with its default policy (``ActorCriticCNN``, MLP encoder), held
    as the train phase is, after B1 is held bitwise at its 100x32 tiles.
-11. train-hierarchy: the planner path, ``train_hierarchy``'s defaults (4000
+13. train-hierarchy: the planner path, ``train_hierarchy``'s defaults (4000
    envs, the planner replanning every 100 steps), held the same way, with
    the planner's share of the rollout; B1 launches twice while the Runner
    starts (the scan ``reset_fn`` stores for the planner, and observe).
+14. train-velocity: the velocity path, ``scripts/train_velocity_tracking
+   .py``'s defaults (4000 envs, 30x30 tiles of 50x50 cells, the 441-bin
+   command curriculum over 4 gaits, the CSE policy), held the same way; it
+   observes no heights, so B1 is launched 0 times.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
-path), each as one JSON line, the card's name and power limit as
-``nvidia-smi`` prints them, and last ``{"ok": true, "device": ...}``.  The
+path, and none on the velocity path), each as one JSON line, the card's
+name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
+"device": ...}``.  The
 script exits non-zero, without that last line, when CUDA is missing, when
 the port is not beside it, or when any phase fails.  It imports nothing of
 JAX.
@@ -149,6 +158,35 @@ def hierarchy_args(num_envs: int = 4000, tiles: int = 20, plan_interval: int = 1
     return train_hierarchy.parse_args([
         "--num_envs", str(num_envs), "--terrain_rows", str(tiles),
         "--terrain_cols", str(tiles), "--plan_interval", str(plan_interval)])
+
+
+def velocity_args(num_envs: int = 4000, tiles: int = 30):
+    """``scripts/train_velocity_tracking.py``'s defaults (4000 envs, 30x30
+    trimesh tiles of 5 m at 0.10 m, a 30-frame history, actuator-net
+    torques, ji22 shaping at sigma 0.02, the CSE policy), parsed by the
+    port's ``train_velocity_tracking.parse_args``."""
+    from legged_tracking_torch import train_velocity_tracking
+    return train_velocity_tracking.parse_args([
+        "--num_envs", str(num_envs), "--terrain_rows", str(tiles), "--terrain_cols", str(tiles)])
+
+
+def velocity_reference_env(device):
+    """The velocity configuration cut to 8 envs on 2x2 tiles, with a
+    command resample every 2 steps, 5-step episodes, the curriculum starting
+    from its centre bin and success thresholds an eighth of the defaults:
+    within 8 steps the curriculum update, the resample and the auto-reset
+    run, and the weights move."""
+    from legged_tracking_torch import train_velocity_tracking
+    from legged_tracking_torch.envs.velocity_env import TRACK_KEYS, VelocityTrackingEnv
+
+    cfg = train_velocity_tracking.build_cfg(velocity_args(8, tiles=2))
+    cfg.commands.resampling_time = 0.04
+    cfg.env.episode_length_s = 0.1
+    cfg.commands.lin_vel_x = cfg.commands.ang_vel_yaw = [-0.3, 0.3]
+    th = cfg.curriculum_thresholds
+    for k in TRACK_KEYS:
+        setattr(th, k, getattr(th, k) / 8)
+    return VelocityTrackingEnv(cfg, seed=3, device=device)
 
 
 def cuda_ms(fn, iters: int = 100, reps: int = 7) -> tuple[float, float]:
@@ -466,14 +504,15 @@ def phase_rollout(dev, card_line: str, profile_dir: str | None):
     return {"scan_heights": launches}
 
 
-def update_reference(dev, card_line: str, phase: str, make_cfg, make_ac, tol: dict):
+def update_reference(dev, card_line: str, phase: str, make_env, make_ac, tol: dict,
+                     extra_errs=None):
     """One train_iteration of 8 envs on the card against the CPU: the same
     reset state and env draws, parameters, action noise and permutation.
-    ``make_cfg()`` gives the configuration, ``make_ac(env)`` the policy
-    (None: the CSE MLP); its errors are held to ``tol``."""
+    ``make_env(device)`` builds the env, ``make_ac(env)`` the policy (None:
+    the CSE MLP); its errors are held to ``tol``.  ``extra_errs(cpu_state,
+    card_state)`` adds errors of the final env states, held alike."""
     import torch
 
-    from legged_tracking_torch.envs import LeggedEnv
     from legged_tracking_torch.learn.ppo import PPO, PPOArgs
 
     n, T = 8, 8
@@ -482,7 +521,7 @@ def update_reference(dev, card_line: str, phase: str, make_cfg, make_ac, tol: di
     perm = torch.randperm(T * n, generator=g)
     log, outs = None, {}
     for d in ("cpu", dev):
-        env = LeggedEnv(make_cfg(), seed=3, device=d)
+        env = make_env(d)
         if log is None:
             log = env.draw = DrawLog(env)
         else:
@@ -492,10 +531,10 @@ def update_reference(dev, card_line: str, phase: str, make_cfg, make_ac, tol: di
         state = env.reset_fn(True)
         ts = alg.init()
         start = {k: v.detach().cpu().clone() for k, v in ts.params.items()}
-        ts, _, _, metrics = alg.train_iteration(ts, state, env.observe(state),
-                                                action_noise=noise.to(d), perm=perm)
-        outs[d] = (ts, metrics)
-    (ts_c, m_c), (ts_g, m_g) = outs["cpu"], outs[dev]
+        ts, state, _, metrics = alg.train_iteration(ts, state, env.observe(state),
+                                                    action_noise=noise.to(d), perm=perm)
+        outs[d] = (ts, metrics, state)
+    (ts_c, m_c, s_c), (ts_g, m_g, s_g) = outs["cpu"], outs[dev]
 
     def rms_rel(a, b, keys):
         """rms difference of the leaves ``keys`` over the rms distance they
@@ -522,6 +561,8 @@ def update_reference(dev, card_line: str, phase: str, make_cfg, make_ac, tol: di
             "learning_rate": abs(float(ts_g.learning_rate) / float(ts_c.learning_rate) - 1),
             "losses": max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0)
                           for k in losses)}
+    if extra_errs is not None:
+        errs.update(extra_errs(s_c, s_g))
     bad = {k: v for k, v in errs.items() if not v <= tol[k]}
     emit({"phase": phase, "ok": not bad, "card": card_line, "envs": n,
           "steps": T, "policy": type(alg.ac).__name__, "max_err": errs, "tolerance": tol,
@@ -544,7 +585,9 @@ def phase_update_reference(dev, card_line: str):
     # branch at every minibatch); each limit is 5 to 10 times that
     tol = {"params_rms_rel": 1e-2, "params_leaf_rms_rel": 0.13, "opt_state": 3e-2,
            "adapt_opt_state": 4e-2, "learning_rate": 0.0, "losses": 5e-4}
-    update_reference(dev, card_line, "update_reference", lambda: bench_cfg(8, tiles=2),
+    from legged_tracking_torch.envs import LeggedEnv
+    update_reference(dev, card_line, "update_reference",
+                     lambda d: LeggedEnv(bench_cfg(8, tiles=2), seed=3, device=d),
                      lambda env: None, tol)
 
 
@@ -560,8 +603,60 @@ def phase_cnn_update_reference(dev, card_line: str):
     # bitwise; each limit is 5 to 10 times that
     tol = {"params_rms_rel": 5e-3, "params_leaf_rms_rel": 3e-2, "opt_state": 2e-2,
            "adapt_opt_state": 1e-2, "learning_rate": 0.0, "losses": 2e-4}
-    update_reference(dev, card_line, "cnn_update_reference", lambda: train.build_cfg(args),
+    from legged_tracking_torch.envs import LeggedEnv
+    update_reference(dev, card_line, "cnn_update_reference",
+                     lambda d: LeggedEnv(train.build_cfg(args), seed=3, device=d),
                      lambda env: train.make_policy(args, env.cfg, env), tol)
+
+
+def velocity_state_errs(s_cpu, s_card) -> dict:
+    """Elements of the curriculum's state (weights, bins, categories) and of
+    the commands that differ between the card and the CPU after the
+    iteration: the curriculum's draws are replayed, and its update and
+    inverse CDF are exact, so every count must be 0.  ``curriculum_unmoved``
+    is 1 if the weights still hold only the one starting bin per gait
+    category, a run in which no bump was held to the CPU's."""
+    out = {k: int((getattr(s_card, k).cpu() != getattr(s_cpu, k)).sum())
+           for k in ("curriculum_weights", "env_command_bins", "env_command_categories",
+                     "commands")}
+    w = s_cpu.curriculum_weights
+    out["curriculum_unmoved"] = int(int((w > 0).sum()) <= w.shape[0])
+    return out
+
+
+def phase_velocity_reference(dev, card_line: str):
+    """The velocity env with the CSE policy: one train_iteration of 8 envs,
+    the card against the CPU, and the curriculum's state bitwise."""
+    # the same float32 sums in another order as in the CSE policy's phase;
+    # the curriculum (weights, bins, categories) and the commands bitwise.
+    # On an H100 the errors read: parameters 2.5e-5 of the rms distance
+    # they moved (6.0e-4 for the worst leaf), Adam moments 5.6e-5 and
+    # 7.9e-6, losses 6.0e-7, the learning rate bitwise; each limit is 10
+    # to 20 times that
+    tol = {"params_rms_rel": 5e-4, "params_leaf_rms_rel": 6e-3, "opt_state": 6e-4,
+           "adapt_opt_state": 8e-5, "learning_rate": 0.0, "losses": 6e-6,
+           "curriculum_weights": 0, "env_command_bins": 0, "env_command_categories": 0,
+           "commands": 0, "curriculum_unmoved": 0}
+    update_reference(dev, card_line, "velocity_reference", velocity_reference_env,
+                     lambda env: None, tol, extra_errs=velocity_state_errs)
+
+
+def phase_rma_update_reference(dev, card_line: str):
+    """The same with the RMA policy (ActorCriticRMA)."""
+    from legged_tracking_torch.learn.actor_critic_rma import ActorCriticRMA
+
+    # on an H100 the errors read: parameters 7.0e-5 of the rms distance
+    # they moved (3.8e-4 for the worst leaf), Adam moments 5.0e-5 and
+    # 9.3e-6, losses 3.9e-7, the learning rate and the curriculum bitwise;
+    # each limit is about 10 times that
+    tol = {"params_rms_rel": 7e-4, "params_leaf_rms_rel": 4e-3, "opt_state": 5e-4,
+           "adapt_opt_state": 9e-5, "learning_rate": 0.0, "losses": 4e-6,
+           "curriculum_weights": 0, "env_command_bins": 0, "env_command_categories": 0,
+           "commands": 0, "curriculum_unmoved": 0}
+    update_reference(dev, card_line, "rma_update_reference", velocity_reference_env,
+                     lambda env: ActorCriticRMA(env.num_obs, env.num_privileged_obs,
+                                                env.num_obs_history, env.num_actions),
+                     tol, extra_errs=velocity_state_errs)
 
 
 def planner_inputs(env, dev):
@@ -720,12 +815,14 @@ def update_flop(ac, samples: int) -> float:
 
 
 def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
-                at_setup: int, profile_dir: str | None, extra: dict | None = None):
+                at_setup: int, profile_dir: str | None, extra: dict | None = None,
+                scans: bool = True):
     """Train ``env`` with the Runner ``make_runner(logdir)`` builds, through
     Runner.learn, for ``iters`` iterations into a temporary logdir: finite
     metrics, parameters that moved, B1 launched ``at_setup`` times while
-    the Runner starts and 24 times an iteration, metrics.jsonl, a
-    checkpoint that loads back, policy.npz.  Prints train env-steps/s over
+    the Runner starts and 24 times an iteration (never, without ``scans``:
+    a path that observes no heights), metrics.jsonl, a checkpoint that
+    loads back, policy.npz.  Prints train env-steps/s over
     the iterations after the first (host clock, each iteration between two
     synchronizes), the rollout/update split and, with the planner on, the
     planner's share of the rollout (CUDA events, no barrier inside an
@@ -789,11 +886,12 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
         if planning:
             del env._plan_local_targets
         total = scan.scan_heights.launches
-        if (setup_launches != at_setup or launches != [T] * iters
-                or total != at_setup + T * iters):
+        per_it = T if scans else 0
+        if (setup_launches != at_setup or launches != [per_it] * iters
+                or total != at_setup + per_it * iters):
             raise AssertionError(f"{phase}: scan_heights launches: {setup_launches} while the "
                                  f"Runner starts, {launches} per iteration, {total} in all; "
-                                 f"expected {at_setup}, {T} each")
+                                 f"expected {at_setup}, {per_it} each")
         bad = [(r["it"], k) for r in history for k, v in r.items()
                if isinstance(v, float) and not np.isfinite(v)]
         if len(history) != iters or bad:
@@ -837,7 +935,10 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
            "logdir_files": files,
            "last": {k: history[-1][k] for k in ("value_loss", "surrogate_loss",
                                                  "adaptation_loss", "kl_mean", "learning_rate",
-                                                 "mean_reward_per_step")}}
+                                                 "mean_reward_per_step", "rew_total",
+                                                 "curriculum_unlocked_frac",
+                                                 "curriculum_weight_mean")
+                    if k in history[-1]}}
     if planning:
         plan = split["planner"][T:]           # the iterations after the first
         row["planner_s_per_step"] = float(np.mean(plan))
@@ -912,6 +1013,33 @@ def phase_train_hierarchy(dev, card_line: str, profile_dir: str | None):
                        extra={"scan_heights_check": scan_row})
 
 
+def phase_train_velocity(dev, card_line: str, profile_dir: str | None):
+    """The velocity path: scripts/train_velocity_tracking.py's defaults (4000
+    envs, 30x30 tiles of 50x50 cells, the command curriculum, the CSE
+    policy) trained by Runner.learn.  It observes no heights: B1 is never
+    launched."""
+    import torch
+
+    from legged_tracking_torch import train_velocity_tracking
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+
+    args = velocity_args()
+    t0 = time.perf_counter()
+    env = VelocityTrackingEnv(train_velocity_tracking.build_cfg(args), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def make_runner(logdir):
+        args.logdir = logdir
+        return train_velocity_tracking.make_runner(args, env, log_freq=1, save_interval=2)
+    return train_phase(dev, card_line, "train_velocity", env, make_runner, iters=4, at_setup=0,
+                       profile_dir=profile_dir, scans=False,
+                       extra={"env_build_s": build_s, "tiles": list(env.terrain.tiles.shape),
+                              "curriculum_bins": env.curriculum.num_bins,
+                              "num_obs": env.num_obs, "num_obs_history": env.num_obs_history,
+                              "num_commands": env.cfg.commands.num_commands})
+
+
 def profile(fn, label: str, out_dir: str, card_line: str):
     """``fn`` once more under torch.profiler: device busy time by kernel and
     the device's idle share of its wall time."""
@@ -977,18 +1105,25 @@ def main(argv=None) -> int:
     by_path = {"rollout": timed("rollout", phase_rollout, dev, card_line, args.profile)}
     timed("update_reference", phase_update_reference, dev, card_line)
     timed("cnn_update_reference", phase_cnn_update_reference, dev, card_line)
+    timed("velocity_reference", phase_velocity_reference, dev, card_line)
+    timed("rma_update_reference", phase_rma_update_reference, dev, card_line)
     timed("planner", phase_planner, dev, card_line)
     timed("planner_reference", phase_planner_reference, dev, card_line)
     for path, fn in (("train", phase_train), ("train_goal", phase_train_goal),
                      ("train_hierarchy", phase_train_hierarchy)):
         by_path[path] = timed(path, fn, dev, card_line, args.profile)
+    # the velocity path observes no heights: B1 is not one of its kernels
+    off_path = {"train_velocity": timed("train_velocity", phase_train_velocity, dev,
+                                        card_line, args.profile)}
     emit({"phase_seconds": seconds, "card": card_line})
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+        row["launches_off_path"] = {path: n[row["name"]] for path, n in off_path.items()}
         row["launches"] = by_path["train"][row["name"]]
-        if not all(row["launches_by_path"].values()):
-            raise AssertionError(f"{row['name']} was not launched on every path: "
-                                 f"{row['launches_by_path']}")
+        if not all(row["launches_by_path"].values()) or any(row["launches_off_path"].values()):
+            raise AssertionError(f"{row['name']} was not launched on every path of its own, "
+                                 f"or was on another: {row['launches_by_path']}, "
+                                 f"{row['launches_off_path']}")
     emit({"kernels": rows, "card": card_line})
     print(card_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,8 +133,9 @@ def terrain_to_numpy(terrain: TerrainArrays) -> dict:
 
 # --------------------------------------------------------------- env state
 def env_state_from_numpy(state, device="cuda") -> EnvState:
-    """JAX ``EnvState`` numpy leaves -> the port's EnvState.  Fields the port
-    has no use for (PRNG keys, velocity-task extensions) are ignored."""
+    """JAX ``EnvState`` numpy leaves -> the port's EnvState.  The PRNG keys
+    are ignored; a task's optional fields (the velocity task's, the
+    planner's scan) come across when they are set, and stay None when not."""
     f = _fields(state)
     out = {}
     for name in EnvState._fields:
@@ -144,8 +145,8 @@ def env_state_from_numpy(state, device="cuda") -> EnvState:
         elif name == "act":
             out[name] = ActuatorState(**{k: _tensor(v, device)
                                          for k, v in _fields(f[name]).items()})
-        elif f.get(name) is None and name == "measured_heights":
-            out[name] = None
+        elif f.get(name) is None and name in EnvState._field_defaults:
+            out[name] = None            # a field of another task
         else:
             out[name] = _tensor(f[name], device)
     out["obs_history"] = out["obs_history"].to(torch.bfloat16)
@@ -155,7 +156,8 @@ def env_state_from_numpy(state, device="cuda") -> EnvState:
 def env_state_to_numpy(state: EnvState) -> dict:
     """The port's EnvState -> nested dict of numpy arrays under the JAX field
     names (phys and act as dicts); obs_history comes back as float32.  A
-    field that is None (measured_heights without the planner) is left out."""
+    field that is None (another task's, or measured_heights without the
+    planner) is left out."""
     out = {}
     for name, v in state._asdict().items():
         if v is None:

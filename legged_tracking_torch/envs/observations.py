@@ -115,17 +115,19 @@ def scalar_obs(cfg, *, projected_gravity, commands, dof_pos, default_dof_pos,
 
 
 def assemble_obs(cfg, scalars, heights, *, base_lin_vel, base_ang_vel,
-                 base_quat, last_actions, foot_contact_z):
-    """The tunnel task's obs vector: scalars, heights, and the optional
-    velocity / previous-action / yaw / contact blocks (the gait-clock blocks
-    of the velocity task are not ported)."""
-    if cfg.env.observe_timing_parameter or cfg.env.observe_clock_inputs:
-        raise NotImplementedError("gait clock observations (velocity task)")
+                 base_quat, last_actions, foot_contact_z,
+                 gait_indices=None, clock_inputs=None):
+    """The obs vector: scalars, heights, and the optional previous-action,
+    gait-clock (velocity task), velocity, yaw and contact blocks."""
     parts = [scalars]
     if cfg.env.observe_heights:
         parts.append(heights)
     if cfg.env.observe_two_prev_actions:
         parts.append(last_actions)
+    if cfg.env.observe_timing_parameter:
+        parts.append(gait_indices[:, None])
+    if cfg.env.observe_clock_inputs:
+        parts.append(clock_inputs)
     obs = torch.cat(parts, dim=-1)
     if cfg.env.observe_vel:
         obs = torch.cat([base_lin_vel * cfg.obs_scales.lin_vel,

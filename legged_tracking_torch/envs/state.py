@@ -75,6 +75,18 @@ class EnvState(NamedTuple):
     # --- episodic metric accumulators ---
     episode_sums: torch.Tensor      # (N, K) per active reward term + totals
 
+    # --- velocity-task (walk-these-ways) fields; None for the tunnel task ---
+    gait_indices: torch.Tensor | None = None            # (N,)
+    clock_inputs: torch.Tensor | None = None            # (N, 4)
+    desired_contact_states: torch.Tensor | None = None  # (N, 4)
+    foot_phase: torch.Tensor | None = None              # (N, 4) unwarped gait phase
+    foot_positions: torch.Tensor | None = None          # (N, 4, 3) world
+    foot_velocities: torch.Tensor | None = None         # (N, 4, 3) world
+    env_command_bins: torch.Tensor | None = None        # (N,) int32 curriculum bin
+    env_command_categories: torch.Tensor | None = None  # (N,) int32 gait category
+    curriculum_weights: torch.Tensor | None = None      # (num_categories, n_bins)
+    command_sums: torch.Tensor | None = None            # (N, 4) tracking-term sums
+
     # --- the height scan the local planner reads (None without the
     # planner): the previous step's post-reset scan, so each step pays one
     # scan (the JAX package's EnvState.measured_heights) ---

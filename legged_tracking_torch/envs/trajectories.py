@@ -16,20 +16,12 @@ import numpy as np
 import torch
 
 from ..terrain.heightfield import to_cells
+from ..utils.math import fma as _fma
 
 
 def _uniform(draw, tag, shape):
     """U[0, 1) under ``tag`` (the JAX package's ``jax.random.uniform(k, shape)``)."""
     return draw(tag, shape, 0.0, 1.0)
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once, as the JAX package's compiled ``a * b + c``
-    is (XLA contracts it into a fused multiply-add): the float32 product is
-    exact in float64."""
-    a = torch.as_tensor(a, dtype=torch.float64)
-    return (a * torch.as_tensor(b, dtype=torch.float64, device=a.device)
-            + torch.as_tensor(c, dtype=torch.float64, device=a.device)).float()
 
 
 def fixed_target(draw, tag, base_pos, cfg, terrain, target_dist):

@@ -4,9 +4,10 @@ deployment (port of ``io/checkpoint.py``).
 A policy's parameters cross between the packages, in checkpoints and in
 ``policy.npz``, under the flax tree names of the JAX modules:
 
-- the MLP branches of both policies (``adaptation_module``, ``actor_body``,
-  ``critic_body``): the port's ``<branch>.layers.<i>.weight`` (out, in) is
-  ``<branch>/Dense_<i>/kernel`` (in, out);
+- the MLP branches of the policies (``adaptation_module``, ``actor_body``,
+  ``critic_body``, and the RMA policy's ``env_factor_encoder``): the port's
+  ``<branch>.layers.<i>.weight`` (out, in) is ``<branch>/Dense_<i>/kernel``
+  (in, out);
 - every other submodule keeps its name, so ``ActorCriticCNN``'s
   ``height_map_encoder.Conv_0.weight`` (out, in, kh, kw) is
   ``height_map_encoder/Conv_0/kernel`` (kh, kw, in, out), and
@@ -26,8 +27,9 @@ import torch
 
 from ..learn.optim import AdamState
 
-# the MLP branches, under the same names in both packages and both policies
-AC_BRANCHES = ("adaptation_module", "actor_body", "critic_body")
+# the MLP branches, under the same names in both packages and every policy
+# (``env_factor_encoder``: the RMA policy's)
+AC_BRANCHES = ("adaptation_module", "actor_body", "critic_body", "env_factor_encoder")
 
 
 def state_dict_to_flax_params(sd) -> dict:

@@ -83,6 +83,10 @@ class ActorCriticCSE(nn.Module):
     def adapt(self, obs_history):
         return self.adaptation_module(obs_history)
 
+    def adaptation_target(self, privileged_obs):
+        """CSE supervises the privileged obs itself (ppo.py:164-185)."""
+        return privileged_obs
+
     def action_dist(self, obs, privileged_obs, obs_history):
         """Student distribution (update_distribution, :121-124); obs and
         privileged_obs are unused (protocol shared with the RMA variant)."""

@@ -173,6 +173,9 @@ class ActorCriticCNN(nn.Module):
     def adapt(self, obs_history):
         return self.adaptation_module(self.process_obs_history(obs_history))
 
+    def adaptation_target(self, privileged_obs):
+        return privileged_obs
+
     def action_dist(self, obs, privileged_obs, obs_history):
         pin = self.process_obs_history(obs_history)
         latent = self.adaptation_module(pin)

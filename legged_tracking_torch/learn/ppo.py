@@ -101,10 +101,10 @@ class PPO:
 
     def __init__(self, env, ac_args: ACArgs | None = None, args: PPOArgs | None = None,
                  ac: torch.nn.Module | None = None, seed: int = 0):
-        """``ac``: the policy (``ActorCriticCSE`` or ``ActorCriticCNN``: any
-        module with ``action_dist``, ``evaluate``, ``adapt``,
-        ``act_student`` and ``act_teacher``); the CSE MLP of ``ac_args``
-        when None."""
+        """``ac``: the policy (``ActorCriticCSE``, ``ActorCriticCNN`` or
+        ``ActorCriticRMA``: any module with ``action_dist``, ``evaluate``,
+        ``adapt``, ``adaptation_target``, ``act_student`` and
+        ``act_teacher``); the CSE MLP of ``ac_args`` when None."""
         self.env = env
         self.args = args or PPOArgs()
         if self.args.cheap_shuffle:
@@ -117,7 +117,9 @@ class PPO:
             num_obs=env.num_obs, num_privileged_obs=env.num_privileged_obs,
             num_obs_history=env.num_obs_history, num_actions=env.num_actions,
             args=ac_args)).to(env.device)
-        self.normalize_obs = bool(self.ac.args.normalize_obs)
+        # a policy's args may lack normalize_obs (ACRmaArgs has none)
+        self.normalize_obs = bool(getattr(getattr(self.ac, "args", None), "normalize_obs",
+                                          False))
         self.device = env.device
         # the trailing num_eval_envs envs act deterministically and never
         # enter GAE or the update (reference BaseTask, base_task.py:44-49)
@@ -263,7 +265,10 @@ class PPO:
         surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
         v_loss = self._value_loss(value, target_values, returns)
         loss = surrogate_loss + a.value_loss_coef * v_loss - a.entropy_coef * torch.mean(entropy)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # a parameter the loss does not read (the RMA policy's adaptation
+        # module) takes a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                    materialize_grads=True)
 
         with torch.no_grad():
             kl = torch.mean(normal_kl(old_mu, old_sigma, mean, std))
@@ -281,12 +286,15 @@ class PPO:
                                   ts.opt_state, lr, injected=True)
 
         # adaptation-module substep (ppo.py:160-190) on the post-step
-        # parameters: 80/20 train/test split, the privileged obs as target
+        # parameters: 80/20 train/test split; the target is the policy's
+        # adaptation_target (the privileged obs, or the RMA encoder's
+        # latent), without its gradient
         n_train = h.shape[0] // 5 * 4
-        target = p.detach()
         adapt_opt_state = ts.adapt_opt_state
         ad_loss = ad_test = torch.zeros((), device=self.device)
         for _ in range(a.num_adaptation_module_substeps):
+            with torch.no_grad():
+                target = ac.adaptation_target(p)
             pred = ac.adapt(h)
             ad_loss = torch.mean(torch.square(pred[:n_train] - target[:n_train]))
             ad_test = torch.mean(torch.square(pred[n_train:] - target[n_train:])).detach()

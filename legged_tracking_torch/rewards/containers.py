@@ -4,8 +4,10 @@
 (go1_gym/envs/rewards/reward_crawling.py:9-123), the container of the
 tunnel task; ``TRAJECTORY_TRACKING_REWARDS`` mirrors
 TrajectoryTrackingRewards (trajectory_tracking_reward.py:9-171), the
-container of the goal and planner recipes.  Each term is ``fn(ctx: RewardCtx, cfg) -> (N,)``; the env
-keeps the non-zero-scaled subset.
+container of the goal and planner recipes; the velocity task's
+``CoRLRewards`` are in :mod:`..tasks.corl_rewards`.  Each term is
+``fn(ctx: RewardCtx, cfg) -> (N,)``; the env keeps the non-zero-scaled
+subset.
 """
 
 from __future__ import annotations
@@ -48,9 +50,34 @@ class RewardCtx(NamedTuple):
     feet_air_time: torch.Tensor       # (N, 4) updated air time (post-contact)
     feet_first_contact: torch.Tensor  # (N, 4) bool
 
+    # --- velocity-task (walk-these-ways) extras; None for the tunnel task ---
+    commands: torch.Tensor | None = None              # (N, num_commands)
+    desired_contact_states: torch.Tensor | None = None  # (N, 4)
+    foot_positions: torch.Tensor | None = None        # (N, 4, 3) world
+    foot_velocities: torch.Tensor | None = None       # (N, 4, 3) world
+    prev_foot_velocities: torch.Tensor | None = None  # (N, 4, 3) world (pre-step)
+    foot_phase: torch.Tensor | None = None            # (N, 4) gait phase in [0, 1)
+    joint_pos_target: torch.Tensor | None = None      # (N, 12)
+    last_joint_pos_target: torch.Tensor | None = None
+    last_last_joint_pos_target: torch.Tensor | None = None
+    last_last_actions: torch.Tensor | None = None
+    gravity_unit: torch.Tensor | None = None          # (3,) normalized world gravity
+    feet_contact_filt: torch.Tensor | None = None     # (N, 4) contact | last_contacts
+    base_quat: torch.Tensor | None = None             # (N, 4) xyzw
+
 
 def _norm(x):
     return torch.linalg.vector_norm(x, dim=-1)
+
+
+def slots(idx):
+    """Report-slot indices as an index: a slice when they are consecutive
+    (the feet are), so that indexing a tensor on the card takes no index
+    list from the host."""
+    idx = [int(i) for i in idx]
+    if idx and idx == list(range(idx[0], idx[-1] + 1)):
+        return slice(idx[0], idx[-1] + 1)
+    return idx
 
 
 # ---------------------------------------------------------------- penalties
@@ -289,7 +316,7 @@ def get_container(name: str) -> dict:
         "RewardsCrawling": CRAWLING_REWARDS,
         "TrajectoryTrackingRewards": TRAJECTORY_TRACKING_REWARDS,
     }
-    if name not in containers:
-        # CoRLRewards belongs to the velocity env (ROADMAP queue A)
-        raise NotImplementedError(f"reward container {name} is not ported yet")
+    if name == "CoRLRewards":
+        from ..tasks.corl_rewards import CORL_REWARDS
+        return CORL_REWARDS
     return containers[name]

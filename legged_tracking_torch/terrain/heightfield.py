@@ -143,3 +143,22 @@ def sample_window_bilinear(table, env_tile, xs, ys, PX: int, PY: int, hs: float,
     dhdx = Ax[..., 0] * wy[:, :, None, 0] + Ax[..., 1] * wy[:, :, None, 1]
     dhdy = A[..., 0] * dw[0] + A[..., 1] * dw[1]
     return height, torch.stack([dhdx, dhdy], dim=-1)
+
+
+def sample_height_nearest(terrain: TerrainArrays, env_tile, env_terrain_origin, points_xy):
+    """Nearest(floor)-cell heights, the semantics of the reference height
+    scan (``(points / horizontal_scale).long()`` truncation,
+    legged_robot_trajectory_tracking.py:1948-1956), from the float32 tiles.
+    The cell is picked with :func:`to_cells`, as the compiled JAX package
+    picks it.
+
+    env_tile (N,), env_terrain_origin (N, 3), points_xy (N, P, 2) world.
+    Returns (N, P, 2) [ceiling, floor]."""
+    tiles = terrain.tiles
+    L, h, w = tiles.shape[1], tiles.shape[2], tiles.shape[3]
+    local = to_cells(points_xy - env_terrain_origin[:, None, :2], terrain.horizontal_scale)
+    x0 = torch.clamp(local[..., 0].to(torch.int32), 0, h - 2).long()
+    y0 = torch.clamp(local[..., 1].to(torch.int32), 0, w - 2).long()
+    base = env_tile.long()[:, None] * (L * h * w) + x0 * w + y0
+    flat = tiles.reshape(-1)
+    return torch.stack([flat[base], flat[base + h * w]], dim=-1)

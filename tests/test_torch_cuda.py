@@ -395,3 +395,86 @@ def test_goal_train_iteration_on_card_is_finite(cuda_device):
         assert v.device.type == "cuda" and bool(torch.isfinite(v.float()).all()), k
     assert all(not torch.equal(v, start[k]) for k, v in ts.params.items())
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
+
+
+def velocity_env(num_envs, device, tiles=2):
+    """scripts/train_velocity_tracking.py's configuration at ``num_envs``
+    envs on tiles x tiles trimesh tiles of 50 x 50 cells, with commands
+    resampled every 2 steps and 5-step episodes."""
+    from legged_tracking_torch import train_velocity_tracking
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+
+    cfg = train_velocity_tracking.build_cfg(train_velocity_tracking.parse_args(
+        ["--num_envs", str(num_envs), "--terrain_rows", str(tiles),
+         "--terrain_cols", str(tiles)]))
+    cfg.commands.resampling_time = 0.04
+    cfg.env.episode_length_s = 0.1
+    return VelocityTrackingEnv(cfg, seed=3, device=device)
+
+
+@pytest.mark.cuda
+def test_velocity_train_iteration_on_card_is_finite(cuda_device):
+    """A whole train_iteration of 64 envs of the velocity env on the card
+    (curriculum resamples and auto-resets inside it), with the CSE policy:
+    finite metrics, parameters that moved, the curriculum's state on the
+    card, and kernel B1 never launched (the path observes no heights)."""
+    from legged_tracking_torch.learn.ppo import PPO
+
+    env = velocity_env(64, cuda_device)
+    alg = PPO(env, seed=0)
+    ts = alg.init()
+    start = {k: v.detach().clone() for k, v in ts.params.items()}
+    before = scan.scan_heights.launches
+    state = env.reset_fn(True)
+    ts, state, obs, metrics = alg.train_iteration(ts, state, env.observe(state))
+    torch.cuda.synchronize()
+    assert scan.scan_heights.launches == before
+    for k, v in metrics.items():
+        assert v.device.type == "cuda" and bool(torch.isfinite(v.float()).all()), k
+    assert int(metrics["num_episodes"]) > 0
+    assert all(not torch.equal(v, start[k]) for k, v in ts.params.items())
+    for k in ("curriculum_weights", "env_command_bins", "env_command_categories", "commands"):
+        assert getattr(state, k).device.type == "cuda", k
+    w = state.curriculum_weights
+    assert w.shape == (4, 441) and bool(((w >= 0) & (w <= 1)).all())
+    assert all(bool(torch.isfinite(v.float()).all()) for v in obs.values())
+
+
+@pytest.mark.cuda
+def test_rma_update_on_card_matches_cpu(cuda_device):
+    """One ``update`` of the RMA policy (5 epochs x 4 minibatches) on a
+    random 8-step, 16-env trajectory of the velocity env's dimensions, on
+    the card against the CPU from the same parameters and permutation: the
+    learning rate bitwise, and the limits of
+    test_update_on_card_matches_cpu."""
+    from legged_tracking_torch.learn.actor_critic_rma import ActorCriticRMA
+    from legged_tracking_torch.learn.ppo import PPO, Transition
+
+    algs = {}
+    for d in ("cpu", cuda_device):
+        env = velocity_env(16, d)
+        torch.manual_seed(0)
+        algs[d] = PPO(env, ac=ActorCriticRMA(env.num_obs, env.num_privileged_obs,
+                                             env.num_obs_history, env.num_actions))
+    traj, last_values, perm = random_trajectory(algs["cpu"], 8, seed=1)
+    out = {}
+    for d, alg in algs.items():
+        ts = alg.init()
+        start = {k: v.detach().cpu().clone() for k, v in ts.params.items()}
+        tr = Transition(*(x.to(d) for x in traj))
+        returns, adv = alg.compute_gae(tr, last_values.to(d))
+        out[d] = alg.update(ts, tr, returns, adv, perm=perm)
+    (ts_c, m_c), (ts_g, m_g) = out["cpu"], out[cuda_device]
+    errs = {
+        "params_leaf_rms_rel": max(float(((ts_g.params[k].detach().cpu() - v.detach()).square()
+                                          .mean() / (v.detach() - start[k]).square().mean())
+                                         .sqrt()) for k, v in ts_c.params.items()),
+        "opt_state": max(float((ts_g.opt_state.mu[k].cpu() - v).abs().max()
+                               / v.abs().max().clamp(min=1e-30))
+                         for k, v in ts_c.opt_state.mu.items()),
+        "losses": max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1.0)
+                      for k in ("value_loss", "surrogate_loss", "adaptation_loss",
+                                "adaptation_test_loss", "kl_mean"))}
+    assert float(ts_g.learning_rate) == float(ts_c.learning_rate)
+    tol = {"params_leaf_rms_rel": 5e-3, "opt_state": 4e-3, "losses": 5e-5}
+    assert all(errs[k] <= tol[k] for k in tol), errs

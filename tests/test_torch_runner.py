@@ -320,3 +320,13 @@ def test_train_entry_refuses_what_is_not_ported(flags, module):
         return
     with pytest.raises(NotImplementedError, match=module):
         t_train.main(args)
+
+
+def test_velocity_entry_refuses_what_is_not_ported():
+    """The velocity entry's --num_devices needs data parallelism (A13) and
+    raises NotImplementedError naming it, before any env is built."""
+    from legged_tracking_torch import train_velocity_tracking as t_tv
+    args = t_tv.parse_args(["--device", "cpu", "--num_devices", "4"])
+    with pytest.raises(NotImplementedError, match="A13"):
+        t_tv.main(args)
+    t_tv.check_supported(t_tv.parse_args(["--device", "cpu"]))

@@ -43,7 +43,8 @@ Phases, each printing one JSON line:
    positions and local targets within limits of 5 to 20 times the
    readings on an H100.
 11. train: the main path.  The bench configuration at 4096 envs trained by
-   the port's ``Runner.learn`` for 4 iterations into a temporary logdir.
+   the port's ``Runner.learn`` for 4 iterations into a temporary logdir,
+   which the eval phases read (as the next three phases' runs).
    Checks finite metrics, parameters that moved, the scan launched 24
    times an iteration and once at the Runner's observe, metrics.jsonl, a
    checkpoint that loads back and policy.npz; prints train env-steps/s
@@ -61,9 +62,24 @@ Phases, each printing one JSON line:
    .py``'s defaults (4000 envs, 30x30 tiles of 50x50 cells, the 441-bin
    command curriculum over 4 gaits, the CSE policy), held the same way; it
    observes no heights, so B1 is launched 0 times.
+15. eval-reference: ``eval.rollout_metrics`` of the bench run's checkpoint,
+   8 envs with DR and noise off, 5 steps on the card and on the CPU from
+   one reset state with the same draws; every env's nine metrics and
+   adaptation loss, and the frames' base positions, then the metrics of
+   the CPU's final state computed on the card, within limits of 5 to 20
+   times the readings on an H100.
+16. eval: the eval entries on the four runs at their own widths, depths cut
+   to 100 steps (printed): ``eval``'s rollout and metrics (16 envs) on each
+   run, ``eval_reached`` (1,024 envs) on the goal run and
+   ``play_hierarchical`` (1 env, the planner every 100 steps) on the
+   hierarchy run; each prints its metrics, env-steps/s and B1's launches,
+   held to the count the code gives (one a step, one at each observe, one
+   at a reset that stores the planner's scan; none on the velocity run),
+   and B1 is held bitwise at each tunnel env's width first.  No rendering.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
-path, and none on the velocity path), each as one JSON line, the card's
+path, eval paths included, and none on the velocity paths), each as one
+JSON line, the card's
 name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": ...}``.  The
 script exits non-zero, without that last line, when CUDA is missing, when
@@ -76,8 +92,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -815,10 +833,11 @@ def update_flop(ac, samples: int) -> float:
 
 
 def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
-                at_setup: int, profile_dir: str | None, extra: dict | None = None,
+                at_setup: int, profile_dir: str | None, logdir: str, extra: dict | None = None,
                 scans: bool = True):
     """Train ``env`` with the Runner ``make_runner(logdir)`` builds, through
-    Runner.learn, for ``iters`` iterations into a temporary logdir: finite
+    Runner.learn, for ``iters`` iterations into ``logdir`` (the eval phases
+    read it after): finite
     metrics, parameters that moved, B1 launched ``at_setup`` times while
     the Runner starts and 24 times an iteration (never, without ``scans``:
     a path that observes no heights), metrics.jsonl, a checkpoint that
@@ -827,8 +846,6 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
     synchronizes), the rollout/update split and, with the planner on, the
     planner's share of the rollout (CUDA events, no barrier inside an
     iteration), and the peak memory.  Returns B1's launches."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -837,84 +854,84 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
 
     n_envs = env.num_envs
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as logdir:
-        t0 = time.perf_counter()
-        scan.scan_heights.launches = 0
-        runner = make_runner(logdir)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        setup_launches = scan.scan_heights.launches
-        alg = runner.alg
-        T = alg.args.num_steps_per_env
-        start = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
+    os.makedirs(logdir, exist_ok=True)
+    t0 = time.perf_counter()
+    scan.scan_heights.launches = 0
+    runner = make_runner(logdir)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = scan.scan_heights.launches
+    alg = runner.alg
+    T = alg.args.num_steps_per_env
+    start = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
 
-        # each iteration on the host clock between two synchronizes (Runner.learn
-        # reads its metrics back every iteration at log_freq 1, so the loop
-        # has that barrier anyway); its parts from CUDA events, which add none
-        timed, launches = [], []
-        spans = {"rollout": [], "update": [], "planner": []}
+    # each iteration on the host clock between two synchronizes (Runner.learn
+    # reads its metrics back every iteration at log_freq 1, so the loop
+    # has that barrier anyway); its parts from CUDA events, which add none
+    timed, launches = [], []
+    spans = {"rollout": [], "update": [], "planner": []}
 
-        def clocked(fn):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize()
-                before = scan.scan_heights.launches
-                t = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                timed.append(time.perf_counter() - t)
-                launches.append(scan.scan_heights.launches - before)
-                return out
-            return run
+    def clocked(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = scan.scan_heights.launches
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t)
+            launches.append(scan.scan_heights.launches - before)
+            return out
+        return run
 
-        def evented(name, fn):
-            def run(*args, **kwargs):
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                out = fn(*args, **kwargs)
-                end.record()
-                spans[name].append((start, end))
-                return out
-            return run
+    def evented(name, fn):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
 
-        planning = env.cfg.commands.sampling_based_planning
-        alg.train_iteration = clocked(alg.train_iteration)
-        alg.rollout = evented("rollout", alg.rollout)
-        alg.update = evented("update", alg.update)
-        if planning:
-            env._plan_local_targets = evented("planner", env._plan_local_targets)
-        history = runner.learn(iters, verbose=False)
-        if planning:
-            del env._plan_local_targets
-        total = scan.scan_heights.launches
-        per_it = T if scans else 0
-        if (setup_launches != at_setup or launches != [per_it] * iters
-                or total != at_setup + per_it * iters):
-            raise AssertionError(f"{phase}: scan_heights launches: {setup_launches} while the "
-                                 f"Runner starts, {launches} per iteration, {total} in all; "
-                                 f"expected {at_setup}, {per_it} each")
-        bad = [(r["it"], k) for r in history for k, v in r.items()
-               if isinstance(v, float) and not np.isfinite(v)]
-        if len(history) != iters or bad:
-            raise AssertionError(f"{phase}: metrics: {len(history)} records, non-finite {bad}")
-        moved = {k: float((v.detach() - start[k]).abs().max())
-                 for k, v in runner.train_state.params.items()}
-        if not all(m > 0 for m in moved.values()):
-            raise AssertionError(f"{phase}: parameters that did not move: "
-                                 f"{[k for k, m in moved.items() if m == 0]}")
-        with open(os.path.join(logdir, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        if [r["it"] for r in records] != list(range(iters)):
-            raise AssertionError(f"{phase}: metrics.jsonl holds iterations "
-                                 f"{[r['it'] for r in records]}")
-        policy = np.load(os.path.join(logdir, "policy.npz"))
-        if "params/actor_body/Dense_0/kernel" not in policy:
-            raise AssertionError(f"{phase}: policy.npz keys: {sorted(policy)[:5]}")
-        now = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
-        runner.load(os.path.join(logdir, "ac_weights_last.pkl"))
-        if not all(torch.equal(now[k], v) for k, v in runner.train_state.params.items()):
-            raise AssertionError(f"{phase}: ac_weights_last.pkl does not load back the "
-                                 f"parameters")
-        files = sorted(os.listdir(logdir))
+    planning = env.cfg.commands.sampling_based_planning
+    alg.train_iteration = clocked(alg.train_iteration)
+    alg.rollout = evented("rollout", alg.rollout)
+    alg.update = evented("update", alg.update)
+    if planning:
+        env._plan_local_targets = evented("planner", env._plan_local_targets)
+    history = runner.learn(iters, verbose=False)
+    if planning:
+        del env._plan_local_targets
+    total = scan.scan_heights.launches
+    per_it = T if scans else 0
+    if (setup_launches != at_setup or launches != [per_it] * iters
+            or total != at_setup + per_it * iters):
+        raise AssertionError(f"{phase}: scan_heights launches: {setup_launches} while the "
+                             f"Runner starts, {launches} per iteration, {total} in all; "
+                             f"expected {at_setup}, {per_it} each")
+    bad = [(r["it"], k) for r in history for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if len(history) != iters or bad:
+        raise AssertionError(f"{phase}: metrics: {len(history)} records, non-finite {bad}")
+    moved = {k: float((v.detach() - start[k]).abs().max())
+             for k, v in runner.train_state.params.items()}
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"{phase}: parameters that did not move: "
+                             f"{[k for k, m in moved.items() if m == 0]}")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if [r["it"] for r in records] != list(range(iters)):
+        raise AssertionError(f"{phase}: metrics.jsonl holds iterations "
+                             f"{[r['it'] for r in records]}")
+    policy = np.load(os.path.join(logdir, "policy.npz"))
+    if "params/actor_body/Dense_0/kernel" not in policy:
+        raise AssertionError(f"{phase}: policy.npz keys: {sorted(policy)[:5]}")
+    now = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
+    runner.load(os.path.join(logdir, "ac_weights_last.pkl"))
+    if not all(torch.equal(now[k], v) for k, v in runner.train_state.params.items()):
+        raise AssertionError(f"{phase}: ac_weights_last.pkl does not load back the "
+                             f"parameters")
+    files = sorted(os.listdir(logdir))
 
     torch.cuda.synchronize()
     split = {k: [a.elapsed_time(b) / 1e3 for a, b in v] for k, v in spans.items()}
@@ -961,7 +978,7 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
     return {"scan_heights": total}
 
 
-def phase_train(dev, card_line: str, profile_dir: str | None):
+def phase_train(dev, card_line: str, profile_dir: str | None, logdir: str):
     """The main path: the bench configuration trained by Runner.learn."""
     from legged_tracking_torch.envs import LeggedEnv
     from legged_tracking_torch.learn.runner import Runner, RunnerArgs
@@ -969,10 +986,10 @@ def phase_train(dev, card_line: str, profile_dir: str | None):
     env = LeggedEnv(bench_cfg(NUM_ENVS), device=dev)
     return train_phase(dev, card_line, "train", env, lambda logdir: Runner(
         env, runner_args=RunnerArgs(log_freq=1, save_interval=2), logdir=logdir, seed=0),
-        iters=4, at_setup=1, profile_dir=profile_dir)
+        iters=4, at_setup=1, profile_dir=profile_dir, logdir=logdir)
 
 
-def phase_train_goal(dev, card_line: str, profile_dir: str | None):
+def phase_train_goal(dev, card_line: str, profile_dir: str | None, logdir: str):
     """The goal path: stage A of the published recipe at 4096 envs, its
     default policy, trained by Runner.learn; B1 held at its terrain first."""
     from legged_tracking_torch import train
@@ -988,10 +1005,11 @@ def phase_train_goal(dev, card_line: str, profile_dir: str | None):
         return train.make_runner(args, cfg, env, log_freq=1, save_interval=2)
     # one scan at the Runner's observe
     return train_phase(dev, card_line, "train_goal", env, make_runner, iters=4, at_setup=1,
-                       profile_dir=profile_dir, extra={"scan_heights_check": scan_row})
+                       profile_dir=profile_dir, logdir=logdir,
+                       extra={"scan_heights_check": scan_row})
 
 
-def phase_train_hierarchy(dev, card_line: str, profile_dir: str | None):
+def phase_train_hierarchy(dev, card_line: str, profile_dir: str | None, logdir: str):
     """The planner path: train_hierarchy's defaults (4000 envs, the planner
     replanning every 100 steps) trained by Runner.learn; B1 held at its
     terrain and width first."""
@@ -1009,11 +1027,11 @@ def phase_train_hierarchy(dev, card_line: str, profile_dir: str | None):
     # planner, observe takes one; each step then takes one, the planner
     # reading the scan the step before stored
     return train_phase(dev, card_line, "train_hierarchy", env, make_runner, iters=4,
-                       at_setup=2, profile_dir=profile_dir,
+                       at_setup=2, profile_dir=profile_dir, logdir=logdir,
                        extra={"scan_heights_check": scan_row})
 
 
-def phase_train_velocity(dev, card_line: str, profile_dir: str | None):
+def phase_train_velocity(dev, card_line: str, profile_dir: str | None, logdir: str):
     """The velocity path: scripts/train_velocity_tracking.py's defaults (4000
     envs, 30x30 tiles of 50x50 cells, the command curriculum, the CSE
     policy) trained by Runner.learn.  It observes no heights: B1 is never
@@ -1033,11 +1051,168 @@ def phase_train_velocity(dev, card_line: str, profile_dir: str | None):
         args.logdir = logdir
         return train_velocity_tracking.make_runner(args, env, log_freq=1, save_interval=2)
     return train_phase(dev, card_line, "train_velocity", env, make_runner, iters=4, at_setup=0,
-                       profile_dir=profile_dir, scans=False,
+                       profile_dir=profile_dir, logdir=logdir, scans=False,
                        extra={"env_build_s": build_s, "tiles": list(env.terrain.tiles.shape),
                               "curriculum_bins": env.curriculum.num_bins,
                               "num_obs": env.num_obs, "num_obs_history": env.num_obs_history,
                               "num_commands": env.cfg.commands.num_commands})
+
+
+# the eval-reference phase's limits on the rollout's errors (see there)
+EVAL_ROLLOUT_TOL = {"lin_vel_rmsd": 1e-5, "ang_vel_rmsd": 2e-4, "lin_vel_x": 3e-5,
+                    "ang_vel_yaw": 3e-4, "base_height": 6e-7, "max_torques": 5e-4,
+                    "power_consumption": 4e-3, "CoT": 4e-3, "froude_number": 6e-6,
+                    "adaptation_loss": 7e-5, "base_pos": 1e-6}
+
+
+def to_device(x, device):
+    """An env state (named tuples of tensors) on ``device``."""
+    import torch
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    return x
+
+
+def phase_eval_reference(dev, card_line: str, logdir: str):
+    """``eval.rollout_metrics`` of the bench run's checkpoint, 8 envs with DR
+    and noise off, 5 steps on the card and on the CPU from one reset state
+    with the same draws: every env's nine metrics and adaptation loss at
+    the final state, and the frames' base positions.  Then the metrics of
+    the CPU's final state computed on the card, against the CPU's."""
+    from legged_tracking_torch import eval as ev
+
+    n, steps = 8, 5
+    out = {}
+    log = None
+    for d in ("cpu", dev):
+        env = ev.load_env(logdir, n, device=d)
+        if log is None:
+            log = env.draw = DrawLog(env)
+        else:
+            env.draw = log.replay(dev)
+        alg, policy = ev.load_policy(env, logdir)
+        m, frames = ev.rollout_metrics(env, alg, policy, steps, state=env.reset_fn(False))
+        out[d] = (env, alg, {k: v.cpu() for k, v in ev.per_env_metrics(env, alg).items()},
+                  frames, m)
+    (env_c, _, per_cpu, fr_cpu, m_cpu), (env_g, alg_g, per_card, fr_card, m_card) = \
+        out["cpu"], out[dev]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+    errs = {"rollout_" + k: rel(per_card[k], v) for k, v in per_cpu.items()}
+    errs["rollout_base_pos"] = max(float(abs(a["base_pos"] - b["base_pos"]).max())
+                                   for a, b in zip(fr_card, fr_cpu))
+    env_g.state = to_device(env_c.state, dev)
+    same = {k: v.cpu() for k, v in ev.per_env_metrics(env_g, alg_g).items()}
+    errs.update({"same_state_" + k: rel(same[k], v) for k, v in per_cpu.items()})
+    # the rollout: the same float32 sums in another order (cuBLAS products,
+    # reductions) in 5 steps of physics and in the policy, whose feedback
+    # the contacts amplify; the same state: the metrics run the same
+    # elementwise operations on both devices (bitwise), the adaptation loss
+    # a cuBLAS product.  On an H100 the errors read, of max(|value|, 1):
+    # 5.5e-7 (lin_vel_rmsd), 1.3e-5 (ang_vel_rmsd), 1.5e-6 (lin_vel_x),
+    # 1.6e-5 (ang_vel_yaw), 3.0e-8 (base_height), 2.7e-5 (max_torques),
+    # 2.2e-4 (power_consumption, CoT), 3.0e-7 (froude_number), 3.9e-6
+    # (adaptation_loss), 6.0e-8 m (base positions); on the same state 0, and
+    # 1.9e-8 for the adaptation loss.  Each limit is 15 to 20 times that
+    tol = {f"rollout_{k}": v for k, v in EVAL_ROLLOUT_TOL.items()}
+    tol.update({f"same_state_{k}": 0.0 for k in per_cpu})
+    tol["same_state_adaptation_loss"] = 3e-7
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    emit({"phase": "eval_reference", "ok": not bad, "card": card_line, "envs": n,
+          "steps": steps, "policy": type(alg_g.ac).__name__,
+          "max_err_over_max_abs": errs, "tolerance": tol,
+          "metrics_cpu": m_cpu, "metrics_card": m_card})
+    if bad:
+        raise AssertionError(f"eval_reference: card vs CPU beyond tolerance: {bad}")
+
+
+def eval_rollout(dev, name: str, run, steps: int, expected_launches: int) -> dict:
+    """Time ``run()``, one rollout of ``steps`` env steps, and hold B1's
+    launches in it to ``expected_launches``; the rollout's row."""
+    import torch
+
+    from legged_tracking_torch.terrain import scan
+
+    torch.cuda.synchronize()
+    scan.scan_heights.launches = 0
+    t0 = time.perf_counter()
+    row = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = scan.scan_heights.launches
+    if launches != expected_launches:
+        raise AssertionError(f"{name}: scan_heights launched {launches} times, expected "
+                             f"{expected_launches}")
+    row.update({"path": name, "steps": steps, "seconds": seconds,
+                "env_steps_per_s": row["envs"] * steps / seconds,
+                "scan_heights_launches": launches})
+    return row
+
+
+def phase_eval(dev, card_line: str, logdirs: dict) -> tuple[dict, dict]:
+    """The eval entries on the train phases' runs, at their own widths and
+    depths cut to 100 steps: ``eval`` (16 envs, the reference's 500 steps)
+    on each of the four runs, ``eval_reached`` (1,024 envs, its 1,200
+    steps) on the goal run, and ``play_hierarchical`` (1 env, plan_interval
+    100, its 500 steps) on the hierarchy run.  Each rollout's metrics, its
+    env-steps/s and B1's launches: one a step and one at each observe (and
+    one at a reset that stores the planner's scan), none on the velocity
+    run.  B1 is held bitwise at each tunnel eval env's width first."""
+    import numpy as np
+
+    from legged_tracking_torch import eval as ev
+    from legged_tracking_torch import eval_reached, play_hierarchical
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+
+    steps = 100
+    rows, by_path, off_path = [], {}, {}
+    for path, logdir in logdirs.items():
+        env = ev.load_env(logdir, 16, device=dev)
+        alg, policy = ev.load_policy(env, logdir)
+        scans = not isinstance(env, VelocityTrackingEnv) and not env.terrain.is_plane
+        check = scan_check(env, dev) if scans else None
+        # a reset's observe, record_rollout's observe, the steps, the final
+        # observe; and the planner's scan at reset
+        expected = (3 + steps + env.cfg.commands.sampling_based_planning) if scans else 0
+
+        def run():
+            m, _ = ev.rollout_metrics(env, alg, policy, steps)
+            return {"envs": env.num_envs, "policy": type(alg.ac).__name__, "metrics": m}
+        row = eval_rollout(dev, f"eval_{path}", run, steps, expected)
+        row["scan_heights_check"] = check
+        rows.append(row)
+        (by_path if scans else off_path)[row["path"]] = {
+            "scan_heights": row["scan_heights_launches"]}
+        bad = [k for k, v in row["metrics"].items()
+               if not (np.isfinite(v) or (k == "CoT" and not np.isnan(v)))]
+        if bad:
+            raise AssertionError(f"eval_{path}: metrics not finite: {bad} {row['metrics']}")
+
+    env, policy = eval_reached.load(logdirs["goal"], 1024, device=dev)
+    check = scan_check(env, dev)
+    # the observe after the reset, and the steps
+    row = eval_rollout(dev, "eval_reached", lambda: {
+        "envs": env.num_envs, "result": eval_reached.evaluate(env, policy, steps)},
+        steps, 1 + steps)
+    rows.append({**row, "scan_heights_check": check})
+    by_path["eval_reached"] = {"scan_heights": row["scan_heights_launches"]}
+
+    env = play_hierarchical.load_env(logdirs["hierarchy"], 1, 100, dev)
+    _, policy = ev.load_policy(env, logdirs["hierarchy"])
+    check = scan_check(env, dev)
+    # the planner's scan at reset, the reset's and record_rollout's
+    # observes, and the steps
+    row = eval_rollout(dev, "play_hierarchical", lambda: {
+        "envs": env.num_envs, "episode_sums": play_hierarchical.play(env, policy, steps)[0]},
+        steps, 3 + steps)
+    rows.append({**row, "scan_heights_check": check})
+    by_path["play_hierarchical"] = {"scan_heights": row["scan_heights_launches"]}
+    emit({"phase": "eval", "ok": True, "card": card_line,
+          "depth_cut": {"eval": [500, steps], "eval_reached": [1200, steps],
+                        "play_hierarchical": [500, steps]},
+          "rollouts": rows})
+    return by_path, off_path
 
 
 def profile(fn, label: str, out_dir: str, card_line: str):
@@ -1109,12 +1284,24 @@ def main(argv=None) -> int:
     timed("rma_update_reference", phase_rma_update_reference, dev, card_line)
     timed("planner", phase_planner, dev, card_line)
     timed("planner_reference", phase_planner_reference, dev, card_line)
-    for path, fn in (("train", phase_train), ("train_goal", phase_train_goal),
-                     ("train_hierarchy", phase_train_hierarchy)):
-        by_path[path] = timed(path, fn, dev, card_line, args.profile)
-    # the velocity path observes no heights: B1 is not one of its kernels
-    off_path = {"train_velocity": timed("train_velocity", phase_train_velocity, dev,
-                                        card_line, args.profile)}
+    # the train phases' runs, which the eval phases read; removed at exit
+    runs = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        logdirs = {name: os.path.join(runs, name)
+                   for name in ("bench", "goal", "hierarchy", "velocity")}
+        for path, fn, run in (("train", phase_train, "bench"),
+                              ("train_goal", phase_train_goal, "goal"),
+                              ("train_hierarchy", phase_train_hierarchy, "hierarchy")):
+            by_path[path] = timed(path, fn, dev, card_line, args.profile, logdirs[run])
+        # the velocity path observes no heights: B1 is not one of its kernels
+        off_path = {"train_velocity": timed("train_velocity", phase_train_velocity, dev,
+                                            card_line, args.profile, logdirs["velocity"])}
+        timed("eval_reference", phase_eval_reference, dev, card_line, logdirs["bench"])
+        eval_paths, eval_off = timed("eval", phase_eval, dev, card_line, logdirs)
+        by_path.update(eval_paths)
+        off_path.update(eval_off)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
     emit({"phase_seconds": seconds, "card": card_line})
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}

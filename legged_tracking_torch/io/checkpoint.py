@@ -18,14 +18,88 @@ A policy's parameters cross between the packages, in checkpoints and in
 (``params/actor_body/Dense_0/kernel``, ``__meta__/<key>``), so the numpy
 runtime on the robot (``deploy/policy_runtime.py``) loads either package's
 export.  Training checkpoints are written by ``learn/runner.py``.
+
+``load_pickle`` reads a run's artifacts, ``ac_weights_*.pkl`` and
+``parameters.pkl``, written by either package, without importing JAX: the
+JAX package's config classes become the port's (``config.py`` is a copy
+with the same class names), and the optax states of a JAX checkpoint
+become plain named tuples with optax's field names.  Any other global of
+JAX, flax, optax or the JAX package raises.
 """
 
 from __future__ import annotations
 
+import pickle
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .. import config as port_config
 from ..learn.optim import AdamState
+
+
+class EmptyState(NamedTuple):
+    """optax's ``EmptyState`` (``clip_by_global_norm``'s state)."""
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax's Adam state, under its field names."""
+    count: object
+    mu: object
+    nu: object
+
+
+class InjectHyperparamsState(NamedTuple):
+    """optax's ``inject_hyperparams`` state (the learning rate among the
+    ``hyperparams``)."""
+    count: object
+    hyperparams: object
+    inner_state: object
+
+
+class InjectStatefulHyperparamsState(NamedTuple):
+    """The same, as newer optax releases name it."""
+    count: object
+    hyperparams: object
+    hyperparams_states: object
+    inner_state: object
+
+
+_OPTAX_STATES = {cls.__name__: cls for cls in (EmptyState, ScaleByAdamState,
+                                               InjectHyperparamsState,
+                                               InjectStatefulHyperparamsState)}
+_JAX_ROOTS = ("jax", "jaxlib", "flax", "optax", "legged_tracking_tpu")
+
+
+class _Unpickler(pickle.Unpickler):
+    """Admits numpy and the port's config classes; maps the JAX package's
+    config and optax's states (see the module docstring)."""
+
+    def find_class(self, module, name):
+        root = module.split(".")[0]
+        if module == "legged_tracking_tpu.config" and hasattr(port_config, name):
+            return getattr(port_config, name)
+        if root == "optax" and name in _OPTAX_STATES:
+            return _OPTAX_STATES[name]
+        if root in _JAX_ROOTS:
+            raise pickle.UnpicklingError(f"{module}.{name}: a JAX global the port cannot load")
+        if root == "numpy":
+            try:
+                return super().find_class(module, name)
+            except ModuleNotFoundError:
+                # written under numpy 2 (numpy._core), read under numpy 1
+                return super().find_class(module.replace("numpy._core", "numpy.core"), name)
+        if module == "legged_tracking_torch.config":
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"{module}.{name}: not a global of a run's artifacts")
+
+
+def load_pickle(path: str):
+    """A checkpoint or ``parameters.pkl`` of either package's Runner."""
+    with open(path, "rb") as f:
+        return _Unpickler(f).load()
+
 
 # the MLP branches, under the same names in both packages and every policy
 # (``env_factor_encoder``: the RMA policy's)

@@ -132,6 +132,8 @@ class PPO:
         self.n_mix = int(round(mix * self.n_train))
         self.generator = torch.Generator(device=env.device)
         self.generator.manual_seed(seed)
+        # record env0's frames for the training video (the Runner sets it)
+        self.record_video = False
 
     def init(self) -> TrainState:
         params = dict(self.ac.named_parameters())
@@ -160,10 +162,11 @@ class PPO:
         back to bf16), and the stats take in the raw history each step.
         Returns (env_state, last_obs_dict, traj, metrics, obs_rms), with
         traj a Transition of (T, N, ...) tensors and metrics a dict of
-        (T, N, ...)."""
+        (T, N, ...); with ``record_video``, ``metrics["video"]`` holds env0's
+        (T, .) base_pos, base_quat and qj after each step."""
         T = self.args.num_steps_per_env
         ac = self.ac
-        steps, metrics = [], []
+        steps, metrics, frames = [], [], []
         for t in range(T):
             o = obs_dict["obs"]
             h16 = obs_dict["obs_history"]
@@ -196,10 +199,17 @@ class PPO:
             metrics.append({k: out.info[k] for k in
                             ("done", "episode_sums", "episode_length", "reached",
                              "goal_distance")})
+            if self.record_video:
+                # views of this step's state, stacked once after the loop
+                phys = env_state.phys
+                frames.append((phys.base_pos[0], phys.base_quat[0], phys.qj[0]))
             obs_dict = {"obs": out.obs, "privileged_obs": out.privileged_obs,
                         "obs_history": out.obs_history}
         traj = Transition(*(torch.stack(field) for field in zip(*steps)))
         metrics = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+        if frames:
+            metrics["video"] = {k: torch.stack(v) for k, v in
+                                zip(("base_pos", "base_quat", "qj"), zip(*frames))}
         return env_state, obs_dict, traj, metrics, obs_rms
 
     # ----------------------------------------------------------------- GAE
@@ -412,6 +422,8 @@ class PPO:
             metrics[prefix + "reached_mean"] = dmean(roll_metrics["reached"].float())
             metrics[prefix + "goal_distance_mean"] = dmean(roll_metrics["goal_distance"])
 
+        if "video" in roll_metrics:
+            metrics["video"] = roll_metrics["video"]
         with torch.no_grad():
             metrics["mean_reward_per_step"] = torch.mean(traj_train.rewards)
             metrics["action_std_mean"] = torch.mean(traj.sigma[-1])

@@ -15,8 +15,10 @@ normalizer under the JAX keys, and both Adam states (moments as flax trees)
 under keys of their own, ``adam_state`` and ``adapt_adam_state``.  So the
 JAX Runner resumes a port checkpoint (with fresh Adam moments, its fallback
 for a checkpoint without ``opt_state``), and the port resumes a JAX one,
-its optax states included.  ``policy.npz`` has the JAX package's
-deployment layout.  The runner is held against the JAX package,
+its optax states included, without importing JAX.  ``policy.npz`` has
+the JAX package's deployment layout.  With ``save_video_interval`` the
+rollout records env0's frames and the runner renders them to
+``videos/train_it*.mp4`` (:mod:`..io.render`).  The runner is held against the JAX package,
 so it keeps that package's runner behaviour, the four faults ADVICE.md
 lists included (ROADMAP.md §C).
 """
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..io.checkpoint import (adam_from_checkpoint, adam_to_checkpoint, export_policy_npz,
-                             flax_params_to_state_dict, state_dict_to_flax_params)
+                             flax_params_to_state_dict, load_pickle, state_dict_to_flax_params)
 from .actor_critic import ACArgs
 from .metrics_caches import DistCache, SlotCache
 from .ppo import PPO, PPOArgs, copy_state
@@ -49,9 +51,10 @@ class RunnerArgs:
     log_freq: int = 10
     resume: str = ""
     resume_curriculum: bool = True
-    # training-time video of env0 every N iterations; 0 disables (only 0
-    # is ported)
+    # training-time video of env0 every N iterations (reference
+    # ppo_cse/__init__.py:58, :322-345); 0 disables
     save_video_interval: int = 0
+    video_frames: int = 250
     # critic-only warmup iterations after a resume, before any policy
     # gradient flows (resume-shock mitigation); 0 disables
     critic_warmup_iters: int = 0
@@ -67,9 +70,6 @@ class Runner:
                                       "ported yet (ROADMAP A13)")
         self.env = env
         self.runner_args = runner_args or RunnerArgs()
-        if self.runner_args.save_video_interval > 0:
-            raise NotImplementedError("training video (save_video_interval) is not ported "
-                                      "yet (ROADMAP A12)")
         ppo_args = ppo_args or PPOArgs()
         ppo_args.num_steps_per_env = self.runner_args.num_steps_per_env
         self.device = env.device
@@ -79,6 +79,9 @@ class Runner:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(s_init)
             self.alg = PPO(env, ac_args=ac_args, args=ppo_args, ac=ac, seed=s_act)
+        # env0's frames are recorded only for the training video
+        self.alg.record_video = self.runner_args.save_video_interval > 0 and bool(logdir)
+        self._video_buf = []
         self.logdir = logdir
         self.log_wandb = log_wandb
         if logdir:
@@ -163,8 +166,9 @@ class Runner:
             pickle.dump(ckpt, f)
 
     def load(self, path: str):
-        with open(path, "rb") as f:
-            ckpt = pickle.load(f)
+        """Resume from a checkpoint of either package's Runner (read
+        without JAX, :func:`..io.checkpoint.load_pickle`)."""
+        ckpt = load_pickle(path)
         ts = self.train_state
         saved = flax_params_to_state_dict(ckpt["params"])
         with torch.no_grad():
@@ -227,6 +231,17 @@ class Runner:
                 self.alg.train_iteration(self.train_state, self.env_state, self.obs_dict,
                                          update_model=update_model)
             self.tot_timesteps += steps_per_iter
+
+            video = metrics.pop("video", None)
+            vint = self.runner_args.save_video_interval
+            if vint and video is not None:
+                # env0's (T, .) frames stay on the device until a video
+                # iteration renders the trailing video_frames of them
+                keep = max(self.runner_args.video_frames // self.alg.args.num_steps_per_env
+                           + 1, 1)
+                self._video_buf = (self._video_buf + [video])[-keep:]
+                if it % vint == 0 and it > 0:
+                    self._write_training_video(it)
 
             # fix-target curriculum (reference update_curriculum, :186-196),
             # fed every iteration: the reference pushes each episode's
@@ -362,6 +377,38 @@ class Runner:
         if self.logdir:
             with open(os.path.join(self.logdir, "metrics.jsonl"), "a") as f:
                 f.write(json.dumps(rec) + "\n")
+
+    # ---------------------------------------------------------------- video
+    def _write_training_video(self, it: int):
+        """Render the buffered env0 frames to ``videos/train_it*.mp4`` (the
+        reference's training-time video, ppo_cse/__init__.py:322-345).  A
+        failed render is printed and training goes on."""
+        from ..io.render import render_frames, write_mp4
+        buf = {k: torch.cat([c[k] for c in self._video_buf]).cpu().numpy()
+               for k in ("base_pos", "base_quat", "qj")}
+        frames = [{k: v[None, t] for k, v in buf.items()}
+                  for t in range(len(buf["base_pos"]))][-self.runner_args.video_frames:]
+        if not frames:
+            return
+        outdir = os.path.join(self.logdir, "videos")
+        os.makedirs(outdir, exist_ok=True)
+        tile = int(self.env.terrain.env_tile[0])
+        try:
+            path = write_mp4(render_frames(frames, self.env.terrain, tile_idx=tile),
+                             os.path.join(outdir, f"train_it{it:06d}.mp4"))
+            if self.log_wandb:
+                import wandb
+                wandb.log({"train_video": wandb.Video(path)}, step=it)
+        except Exception as e:  # a training-run artifact: never stops training
+            print(f"training-video render failed at it {it}: {e}")
+
+    # --------------------------------------------------------------- export
+    def get_inference_policy(self):
+        """The student policy as a function of (obs, obs_history): a closure
+        around ``act_inference``, which runs without gradients (reference
+        learn/runner.py:535-538)."""
+        alg = self.alg
+        return lambda obs, obs_history: alg.act_inference(obs, obs_history.float())
 
     # ------------------------------------------------------------ profiling
     def _start_profile(self):

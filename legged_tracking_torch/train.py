@@ -7,10 +7,9 @@ arguments from the same flags, then trains.
         --cl_goal_target_dist 3.8 --cl_downstep 0.5 --logdir runs/goal
 
 It runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given, and never moves to the CPU by itself.  Every strategy, terrain
-and policy flag of ``scripts/train.py`` is ported; ``--dr_profile``,
-``--distributed``/``--num_devices`` and ``--save_video_interval`` raise
-``NotImplementedError`` naming the missing module.
+is given, and never moves to the CPU by itself.  Every flag of
+``scripts/train.py`` is ported but ``--distributed``/``--num_devices``,
+which raise ``NotImplementedError`` naming the missing module.
 """
 
 from __future__ import annotations
@@ -186,6 +185,11 @@ def build_cfg(args):
     cfg.normalization.friction_range = [0, 1]
     cfg.normalization.clip_actions = 10.0
 
+    # the evaluation DR regimes as training ranges (reference train.py:183-186)
+    if args.dr_profile:
+        from .learn import domain_randomization_profiles as drp
+        cfg = {"regular": drp.rand_regular, "large": drp.rand_large}[args.dr_profile](cfg)
+
     if args.strategy == "goal":
         _apply_goal_recipe(cfg)
         if args.cl_goal_target_dist is not None:
@@ -309,17 +313,9 @@ def _apply_goal_recipe(cfg):
 
 def check_supported(args):
     """Raise NotImplementedError for a flag whose module is not ported."""
-    missing = [
-        (bool(args.dr_profile), "--dr_profile needs learn/domain_randomization_profiles.py "
-                                "(ROADMAP A12)"),
-        (args.distributed or (args.num_devices or 1) > 1,
-         "--distributed/--num_devices need data parallelism (ROADMAP A13)"),
-        (args.save_video_interval > 0, "--save_video_interval needs the training video "
-                                       "(ROADMAP A12)"),
-    ]
-    for bad, why in missing:
-        if bad:
-            raise NotImplementedError(why)
+    if args.distributed or (args.num_devices or 1) > 1:
+        raise NotImplementedError("--distributed/--num_devices need data parallelism "
+                                  "(ROADMAP A13)")
 
 
 def make_policy(args, cfg, env):

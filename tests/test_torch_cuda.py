@@ -478,3 +478,81 @@ def test_rma_update_on_card_matches_cpu(cuda_device):
     assert float(ts_g.learning_rate) == float(ts_c.learning_rate)
     tol = {"params_leaf_rms_rel": 5e-3, "opt_state": 4e-3, "losses": 5e-5}
     assert all(errs[k] <= tol[k] for k in tol), errs
+
+
+def port_run(logdir, cfg):
+    """A run as the port's Runner writes it, on the CPU: parameters.pkl and
+    a checkpoint of the CSE policy's initial weights."""
+    from legged_tracking_torch.learn.runner import Runner
+    runner = Runner(LeggedEnv(cfg, seed=3, device="cpu"), logdir=str(logdir), seed=0)
+    runner.save(str(logdir / "ac_weights_last.pkl"))
+    return str(logdir)
+
+
+# the eval-reference phase's limits in chip_smoke.py, of max(|value|, 1),
+# 15 to 20 times the readings on an H100
+EVAL_ROLLOUT_TOL = {"lin_vel_rmsd": 1e-5, "ang_vel_rmsd": 2e-4, "lin_vel_x": 3e-5,
+                    "ang_vel_yaw": 3e-4, "base_height": 6e-7, "max_torques": 5e-4,
+                    "power_consumption": 4e-3, "CoT": 4e-3, "froude_number": 6e-6,
+                    "adaptation_loss": 7e-5, "base_pos": 1e-6}
+
+
+@pytest.mark.cuda
+def test_eval_rollout_metrics_on_card_match_cpu(cuda_device, tmp_path):
+    """eval.rollout_metrics of 8 envs (DR and noise off, 3-step episodes),
+    5 steps from one reset state with the same draws, on the card against
+    the CPU: every env's nine metrics and adaptation loss, and the frames'
+    base positions, within the limits of chip_smoke.py's eval-reference
+    phase; the metrics of the CPU's final state computed on the card
+    bitwise (the adaptation loss, a cuBLAS product, within 3e-7)."""
+    from legged_tracking_torch import eval as ev
+
+    logdir = port_run(tmp_path, tunnel_cfg(8, 2))
+    out, draws = {}, []
+    for d in ("cpu", cuda_device):
+        env = ev.load_env(logdir, 8, device=d)
+        if d == "cpu":
+            cpu_draw = env.draw
+
+            def record(tag, shape, lo, hi, integer=False):
+                draws.append(cpu_draw(tag, shape, lo, hi, integer))
+                return draws[-1]
+            env.draw = record
+        else:
+            replay = iter(draws)
+            env.draw = lambda tag, shape, lo, hi, integer=False: next(replay).to(cuda_device)
+        alg, policy = ev.load_policy(env, logdir)
+        _, frames = ev.rollout_metrics(env, alg, policy, 5, state=env.reset_fn(False))
+        out[d] = (env, alg, {k: v.cpu() for k, v in ev.per_env_metrics(env, alg).items()},
+                  frames)
+    (env_c, _, per_cpu, fr_cpu), (env_g, alg_g, per_card, fr_card) = out["cpu"], out[cuda_device]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+    errs = {k: rel(per_card[k], v) for k, v in per_cpu.items()}
+    errs["base_pos"] = max(float(abs(a["base_pos"] - b["base_pos"]).max())
+                           for a, b in zip(fr_card, fr_cpu))
+    assert len(errs) == len(EVAL_ROLLOUT_TOL)
+    assert all(errs[k] <= EVAL_ROLLOUT_TOL[k] for k in errs), errs
+    move = lambda x: (x.to(cuda_device) if torch.is_tensor(x) else
+                      type(x)(*map(move, x)) if hasattr(x, "_fields") else x)
+    env_g.state = move(env_c.state)
+    same = ev.per_env_metrics(env_g, alg_g)
+    for k, v in per_cpu.items():
+        if k == "adaptation_loss":
+            assert rel(same[k].cpu(), v) <= 3e-7
+        else:
+            assert torch.equal(same[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_eval_reached_on_card(cuda_device, tmp_path):
+    """eval_reached at 64 envs for 20 steps on the card: the counts read
+    once at the end are sane and B1 ran once at observe and once a step."""
+    from legged_tracking_torch import eval_reached
+
+    env, policy = eval_reached.load(port_run(tmp_path, tunnel_cfg(8, 2)), 64,
+                                    device=cuda_device)
+    before = scan.scan_heights.launches
+    rec = eval_reached.evaluate(env, policy, steps=20)
+    assert scan.scan_heights.launches == before + 1 + 20
+    assert rec["episodes"] > 0            # 3-step episodes end within 20 steps
+    assert 0.0 <= rec["reached"] <= 1.0 and np.isfinite(rec["mean_ep_len"])

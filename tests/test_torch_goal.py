@@ -185,7 +185,10 @@ def test_trajectory_tracking_rewards_match_jax(term):
     ["--strategy", "pms", "--terrain", "multi_path", "--tunnel_width", "1.5", "--old_ppo"],
     ["--random_target", "--old_ppo"],
     ["--strategy", "e2e", "--terrain", "single_path", "--cnn", "--gru"],
-], ids=["goal", "goal_stage_a", "pms_multi_path", "random_target", "e2e_cnn_gru"])
+    ["--strategy", "e2e", "--old_ppo", "--dr_profile", "large"],
+    ["--strategy", "goal", "--terrain", "random_pyramid", "--dr_profile", "regular"],
+], ids=["goal", "goal_stage_a", "pms_multi_path", "random_target", "e2e_cnn_gru",
+        "e2e_dr_large", "goal_dr_regular"])
 def test_train_build_cfg_matches_scripts(flags):
     """train.build_cfg gives the configuration scripts/train.py builds from
     the same flags, field by field, and leaves the same defaults in the

@@ -381,7 +381,10 @@ def test_train_iteration_matches(n_eval, normalize_obs):
     within 1.4e-7 of its largest value, the Adam moments within 4.9e-5 of
     each leaf's largest value, the rms parameter error of each leaf within
     8.7e-5 of the distance it moved, no element of 1.4M more than 1e-4
-    apart; the learning rate bitwise.  The limits are about 10 times that."""
+    apart; the learning rate bitwise.  The limits are about 10 times that.
+    The port records env0's training-video frames (base_pos, base_quat, qj
+    after each step), as the Runner asks it to with save_video_interval, and
+    they match the JAX ones within the base_pos limit."""
     T, N = 4, 8
     jenv = JEnv(iteration_cfg(Cfg, config_go1, n_eval), seed=3)
     tenv = TEnv(iteration_cfg(TCfg, t_config_go1, n_eval), seed=3, device="cpu")
@@ -389,6 +392,7 @@ def test_train_iteration_matches(n_eval, normalize_obs):
                      args=j_ppo.PPOArgs(num_steps_per_env=T))
     talg = t_ppo.PPO(tenv, ac_args=t_ac.ACArgs(normalize_obs=normalize_obs),
                      args=t_ppo.PPOArgs(num_steps_per_env=T))
+    talg.record_video = True        # as the Runner asks with save_video_interval
     jts = jalg.init(jax.random.key(0))
     jts_np = jax.tree.map(np.asarray, jts)
     tts = convert.train_state_from_numpy(jts_np, talg, device="cpu")
@@ -411,7 +415,13 @@ def test_train_iteration_matches(n_eval, normalize_obs):
     finally:
         del tenv.draw, tenv.step_fn
     jts2, jstate2, jobs2, jm = jalg.train_iteration_jit(jts, jstate, jobs, ikey)
-    jm.pop("video")
+    # env0's training-video frames: (T, 3), (T, 4) and (T, 12), within the
+    # base_pos limit below
+    tvid, jvid = tm.pop("video"), jm.pop("video")
+    assert sorted(tvid) == sorted(jvid) == ["base_pos", "base_quat", "qj"]
+    for k, v in jvid.items():
+        assert tvid[k].shape == v.shape == (T, {"base_pos": 3, "base_quat": 4, "qj": 12}[k])
+        np.testing.assert_allclose(tvid[k].numpy(), np.asarray(v), rtol=0, atol=1e-6, err_msg=k)
     jts2 = jax.tree.map(np.asarray, jts2)
     back = convert.train_state_to_numpy(tts2, jts2)
 

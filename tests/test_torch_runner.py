@@ -266,10 +266,9 @@ def test_freeze_model_rolls_out_without_updating():
 
 @pytest.mark.parametrize("kwargs", [{"num_devices": 2}, {"distributed": True}])
 def test_runner_refuses_what_is_not_ported(kwargs):
+    # the training video is ported (tests/test_torch_eval.py writes one)
     with pytest.raises(NotImplementedError, match="A13"):
         Runner(plane_env(), **kwargs)
-    with pytest.raises(NotImplementedError, match="A12"):
-        Runner(plane_env(), runner_args=RunnerArgs(save_video_interval=5))
 
 
 # ------------------------------------------------------------- train entry
@@ -297,9 +296,11 @@ def test_train_entry_on_cpu(tmp_path):
         assert pickle.load(f)["iteration"] == 2
 
 
-# the modules of the first six cases are ported: the CNN/GRU policy, the
-# goal recipe's TrajectoryTrackingRewards, the planner and random_target
-PORTED = {"actor_critic_cnn", "TrajectoryTrackingRewards", "planner", "random_target"}
+# the modules of all cases but A13 are ported: the CNN/GRU policy, the goal
+# recipe's TrajectoryTrackingRewards, the planner, random_target, the DR
+# profiles and the training video (A12)
+PORTED = {"actor_critic_cnn", "TrajectoryTrackingRewards", "planner", "random_target",
+          "domain_randomization_profiles", "A12"}
 
 
 @pytest.mark.parametrize("flags,module", [

@@ -195,6 +195,45 @@ def test_velocity_terrain_bitwise(mesh, proportions, curriculum):
         np.testing.assert_array_equal(v, np.asarray(want), err_msg=name)
 
 
+def near_midpoint_triples(n, seed):
+    """float32 (a, b, c) whose exact a * b + c lies a hair off a float32
+    midpoint next to c: a * b = (half the gap from c to its neighbour) *
+    (1 +- u^3), u = 2^-k for k in 10..16, as (1 +- u)(1 -+ u + u^2).  The
+    float64 sum rounds onto the midpoint, where a cast to float32 breaks the
+    tie to even, which for about a third of them is the wrong side."""
+    rng = np.random.RandomState(seed)
+    u = np.ldexp(1.0, -rng.randint(10, 17, n))
+    s = rng.choice([-1.0, 1.0], n)
+    c = (rng.uniform(0.01, 100.0, n) * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    up = rng.rand(n) < 0.5
+    nb = np.where(up, np.nextafter(c, np.float32(np.inf)), np.nextafter(c, np.float32(-np.inf)))
+    half = (nb.astype(np.float64) - c) / 2
+    e = np.floor(np.log2(np.abs(half))).astype(int)
+    ea = e // 2 + rng.randint(-3, 4, n)
+    a = np.ldexp(1.0 + s * u, ea).astype(np.float32)
+    b = (np.sign(half) * np.ldexp(1.0 - s * u + u * u, e - ea)).astype(np.float32)
+    return a, b, c
+
+
+def test_fma_rounds_once_as_jitted_jax():
+    """utils.math.fma equals the jitted JAX ``a * b + c`` (one fused
+    multiply-add, rounded once) bitwise: on ROADMAP §C's triple, which a
+    float64 sum cast to float32 misses by one ulp, and on 100,000 crafted
+    near-midpoint triples, about a third of which that cast misses."""
+    from legged_tracking_torch.utils.math import fma
+
+    a, b, c = near_midpoint_triples(100_000, 0)
+    a = np.concatenate([[6.618818133574678e-07], a]).astype(np.float32)
+    b = np.concatenate([[0.04502665251493454], b]).astype(np.float32)
+    c = np.concatenate([[0.5886133909225464], c]).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    double_rounded = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert double_rounded[0] != want[0] and (double_rounded != want).mean() > 0.2
+    got = fma(*map(torch.as_tensor, (a, b, c))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == np.float32(0.5886134505271912)
+
+
 def test_sample_height_nearest_matches_jax():
     """sample_height_nearest on the 50 x 50-cell tiles at random points and
     at points on cell boundaries (where the compiled division by the cell

@@ -76,10 +76,26 @@ Phases, each printing one JSON line:
    held to the count the code gives (one a step, one at each observe, one
    at a reset that stores the planner's scan; none on the velocity run),
    and B1 is held bitwise at each tunnel env's width first.  No rendering.
+17. dp-reference: data parallelism against one rank: the 8-env
+   configuration of ``tests/test_distributed.py``, 3 env steps and 2
+   ``Runner.learn`` iterations (4 steps, 2 x 2 minibatches), run by two
+   ranks that share the card over gloo (named; NCCL refuses two ranks on
+   one card, and the machine has one) and by one rank; rollout base
+   positions and obs within 1e-5, parameters within atol 2e-4 / rtol 2e-3
+   (the JAX package's bars), the ranks' parameters equal.
+18. train-dp: the main path over two such ranks: the bench configuration at
+   4096 global envs, 2048 a rank, B1 held bitwise at each rank's width and
+   rows, then ``Runner.learn`` for 4 iterations, each rank held as the
+   train phase is (B1 97 launches on each, rank 0 the only writer of the
+   logdir), the ranks' parameter checksums equal; prints the global train
+   env-steps/s beside the train phase's 1-rank rate, and each rank's
+   rollout/update split, the all-reduce's share of its update (CUDA events
+   around each collective) and its peak memory, which the ranks report to
+   this process as JSON.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
-path, eval paths included, and none on the velocity paths), each as one
-JSON line, the card's
+path, eval and data-parallel paths included, and none on the velocity
+paths), each as one JSON line, the card's
 name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": ...}``.  The
 script exits non-zero, without that last line, when CUDA is missing, when
@@ -832,29 +848,29 @@ def update_flop(ac, samples: int) -> float:
     return 2.0 * per_sample * samples
 
 
-def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
-                at_setup: int, profile_dir: str | None, logdir: str, extra: dict | None = None,
-                scans: bool = True):
+def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir: str,
+                 scans: bool = True, writes: bool = True, spans: dict | None = None):
     """Train ``env`` with the Runner ``make_runner(logdir)`` builds, through
-    Runner.learn, for ``iters`` iterations into ``logdir`` (the eval phases
-    read it after): finite
+    Runner.learn, for ``iters`` iterations into ``logdir``: finite
     metrics, parameters that moved, B1 launched ``at_setup`` times while
     the Runner starts and 24 times an iteration (never, without ``scans``:
-    a path that observes no heights), metrics.jsonl, a checkpoint that
-    loads back, policy.npz.  Prints train env-steps/s over
-    the iterations after the first (host clock, each iteration between two
-    synchronizes), the rollout/update split and, with the planner on, the
-    planner's share of the rollout (CUDA events, no barrier inside an
-    iteration), and the peak memory.  Returns B1's launches."""
+    a path that observes no heights), and, where the process ``writes``,
+    metrics.jsonl, a checkpoint that loads back, policy.npz.  Measures
+    train env-steps/s over the iterations after the first (host clock,
+    each iteration between two synchronizes; of the envs the run trains,
+    all ranks' in a data-parallel one), the rollout/update split and, with
+    the planner on, the planner's share of the rollout (CUDA events, no
+    barrier inside an iteration), and the peak memory.  ``spans``: more
+    named lists of CUDA event pairs, filled during the run and read out as
+    seconds.  Returns (runner, row); the row's ``scan_heights_launches``
+    are B1's."""
     import numpy as np
     import torch
 
     from legged_tracking_torch.learn.actor_critic import ActorCriticCSE
     from legged_tracking_torch.terrain import scan
 
-    n_envs = env.num_envs
     torch.cuda.reset_peak_memory_stats()
-    os.makedirs(logdir, exist_ok=True)
     t0 = time.perf_counter()
     scan.scan_heights.launches = 0
     runner = make_runner(logdir)
@@ -863,13 +879,14 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
     setup_launches = scan.scan_heights.launches
     alg = runner.alg
     T = alg.args.num_steps_per_env
+    n_envs = alg.num_envs_global
     start = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
 
     # each iteration on the host clock between two synchronizes (Runner.learn
     # reads its metrics back every iteration at log_freq 1, so the loop
     # has that barrier anyway); its parts from CUDA events, which add none
     timed, launches = [], []
-    spans = {"rollout": [], "update": [], "planner": []}
+    spans = {"rollout": [], "update": [], "planner": [], **(spans or {})}
 
     def clocked(fn):
         def run(*args, **kwargs):
@@ -918,20 +935,21 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
     if not all(m > 0 for m in moved.values()):
         raise AssertionError(f"{phase}: parameters that did not move: "
                              f"{[k for k, m in moved.items() if m == 0]}")
-    with open(os.path.join(logdir, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
-    if [r["it"] for r in records] != list(range(iters)):
-        raise AssertionError(f"{phase}: metrics.jsonl holds iterations "
-                             f"{[r['it'] for r in records]}")
-    policy = np.load(os.path.join(logdir, "policy.npz"))
-    if "params/actor_body/Dense_0/kernel" not in policy:
-        raise AssertionError(f"{phase}: policy.npz keys: {sorted(policy)[:5]}")
-    now = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
-    runner.load(os.path.join(logdir, "ac_weights_last.pkl"))
-    if not all(torch.equal(now[k], v) for k, v in runner.train_state.params.items()):
-        raise AssertionError(f"{phase}: ac_weights_last.pkl does not load back the "
-                             f"parameters")
-    files = sorted(os.listdir(logdir))
+    if writes:
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if [r["it"] for r in records] != list(range(iters)):
+            raise AssertionError(f"{phase}: metrics.jsonl holds iterations "
+                                 f"{[r['it'] for r in records]}")
+        policy = np.load(os.path.join(logdir, "policy.npz"))
+        if "params/actor_body/Dense_0/kernel" not in policy:
+            raise AssertionError(f"{phase}: policy.npz keys: {sorted(policy)[:5]}")
+        now = {k: v.detach().clone() for k, v in runner.train_state.params.items()}
+        runner.load(os.path.join(logdir, "ac_weights_last.pkl"))
+        if not all(torch.equal(now[k], v) for k, v in runner.train_state.params.items()):
+            raise AssertionError(f"{phase}: ac_weights_last.pkl does not load back the "
+                                 f"parameters")
+    files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
 
     torch.cuda.synchronize()
     split = {k: [a.elapsed_time(b) / 1e3 for a, b in v] for k, v in spans.items()}
@@ -939,7 +957,7 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
     # heuristics); the rate is over the rest
     it_s, roll_s, upd_s = (float(np.mean(v[1:])) for v in (timed, split["rollout"],
                                                             split["update"]))
-    row = {"phase": phase, "ok": True, "card": card_line, "envs": n_envs, "steps": T,
+    row = {"phase": phase, "ok": True, "envs": n_envs, "steps": T,
            "policy": type(alg.ac).__name__, "iterations": iters,
            "minibatches": alg.args.num_learning_epochs * alg.args.num_mini_batches,
            "setup_s": setup_s, "train_env_steps_per_s": n_envs * T / it_s,
@@ -961,11 +979,25 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
         row["planner_s_per_step"] = float(np.mean(plan))
         row["planner_share_of_rollout"] = float(np.sum(plan) / np.sum(split["rollout"][1:]))
     if isinstance(alg.ac, ActorCriticCSE):
-        flop = update_flop(alg.ac, n_envs * T * alg.args.num_learning_epochs)
+        flop = update_flop(alg.ac, env.num_envs * T * alg.args.num_learning_epochs)
         row.update({"update_matmul_flop": flop, "update_flop_per_s": flop / upd_s,
                     "update_bound_s": flop / F32_OPS_PER_S})
+    row.update({k: split[k] for k in spans if k not in ("rollout", "update", "planner")})
+    return runner, row
+
+
+def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
+                at_setup: int, profile_dir: str | None, logdir: str, extra: dict | None = None,
+                scans: bool = True):
+    """:func:`run_training` of ``env`` into ``logdir`` (the eval phases read
+    it after), its row printed; with ``profile_dir``, a profile of one
+    train iteration (and of one update, on the train phase).  Returns the
+    row."""
+    runner, row = run_training(phase, env, make_runner, iters, at_setup, logdir, scans)
+    row["card"] = card_line
     row.update(extra or {})
     emit(row)
+    alg = runner.alg
     if profile_dir:
         state, obs = runner.env_state, runner.obs_dict
         profile(lambda: alg.train_iteration(runner.train_state, state, obs),
@@ -975,7 +1007,7 @@ def train_phase(dev, card_line: str, phase: str, env, make_runner, iters: int,
             returns, adv = alg.compute_gae(traj, alg._last_values(last_obs, None))
             profile(lambda: alg.update(runner.train_state, traj, returns, adv), "update",
                     profile_dir, card_line)
-    return {"scan_heights": total}
+    return row
 
 
 def phase_train(dev, card_line: str, profile_dir: str | None, logdir: str):
@@ -1056,6 +1088,224 @@ def phase_train_velocity(dev, card_line: str, profile_dir: str | None, logdir: s
                               "curriculum_bins": env.curriculum.num_bins,
                               "num_obs": env.num_obs, "num_obs_history": env.num_obs_history,
                               "num_commands": env.cfg.commands.num_commands})
+
+
+# data parallelism on one card: two ranks share cuda:0 over gloo (NCCL
+# refuses two ranks on one card, and the machine has one)
+DP_RANKS = 2
+DP_BACKEND = "gloo"
+# the JAX package's sharding-invariance bars (tests/test_distributed.py:53-55,
+# :101-103): rollout base positions and obs, and parameters after two
+# iterations
+DP_ROLLOUT_TOL = 1e-5
+DP_PARAMS_ATOL, DP_PARAMS_RTOL = 2e-4, 2e-3
+
+
+def dp_reference_env(device, shard=None):
+    """tests/test_distributed.py's 8-env configuration (plane, xy commands,
+    P control, 2 s episodes, decimation 2)."""
+    from legged_tracking_torch.config import Cfg, config_go1
+    from legged_tracking_torch.envs import LeggedEnv
+
+    cfg = config_go1(Cfg())
+    cfg.env.num_envs = 8
+    cfg.terrain.mesh_type = "plane"
+    cfg.env.command_type = "xy"
+    cfg.control.control_type = "P"
+    cfg.env.episode_length_s = 2.0
+    cfg.control.decimation = 2
+    return LeggedEnv(cfg, device=device, shard=shard)
+
+
+def dp_reference_run(outdir: str, device: str):
+    """One rank's dp-reference work (the whole of it outside a process
+    group): 3 env steps of a fixed action from a seeded reset, then
+    ``Runner.learn(2)`` (4 steps, 2 x 2 minibatches, seed 7), written to
+    ``outdir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from legged_tracking_torch.learn.ppo import PPOArgs
+    from legged_tracking_torch.learn.runner import Runner, RunnerArgs
+    from legged_tracking_torch.parallel import Shard
+
+    dev = torch.device(device)
+    group = dist.is_initialized()
+    rank, world = (dist.get_rank(), dist.get_world_size()) if group else (0, 1)
+    env = dp_reference_env(dev, Shard(rank, world, 8) if group else None)
+    env.generator.manual_seed(3)
+    state = env.reset_fn(False)
+    a = torch.full((env.num_envs, 12), 0.05, device=dev)
+    steps = []
+    for _ in range(3):
+        state, out = env.step_fn(state, a)
+        steps.append({"base_pos": state.phys.base_pos.cpu(), "obs": out.obs.cpu()})
+    runner = Runner(dp_reference_env(dev),
+                    runner_args=RunnerArgs(num_steps_per_env=4, log_freq=1),
+                    ppo_args=PPOArgs(num_mini_batches=2, num_learning_epochs=2), seed=7,
+                    distributed=group)
+    runner.learn(2, verbose=False)
+    params = {k: v.detach().cpu() for k, v in runner.train_state.params.items()}
+    torch.save({"steps": steps, "params": params}, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+def phase_dp_reference(dev, card_line: str):
+    """Data parallelism against one rank on the card: the 8-env
+    configuration of tests/test_distributed.py run by two gloo ranks that
+    share the card and by one, held to the JAX package's bars."""
+    import torch
+
+    from legged_tracking_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out:
+        launch(dp_reference_run, DP_RANKS, out, str(dev), backend=DP_BACKEND, device=str(dev))
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(DP_RANKS)]
+        one_dir = os.path.join(out, "one")
+        os.makedirs(one_dir)
+        dp_reference_run(one_dir, str(dev))
+        one = torch.load(os.path.join(one_dir, "rank0.pt"))
+    rollout = {k: max(float((torch.cat([r["steps"][t][k] for r in ranks]) - s[k]).abs().max())
+                      for t, s in enumerate(one["steps"]))
+               for k in ("base_pos", "obs")}
+    # the share of the bar each parameter uses: |a - b| / (atol + rtol |b|)
+    used = {k: float(((ranks[0]["params"][k] - v).abs()
+                      / (DP_PARAMS_ATOL + DP_PARAMS_RTOL * v.abs())).max())
+            for k, v in one["params"].items()}
+    params_abs = max(float((ranks[0]["params"][k] - v).abs().max())
+                     for k, v in one["params"].items())
+    ranks_equal = all(torch.equal(ranks[0]["params"][k], ranks[r]["params"][k])
+                      for k in one["params"] for r in range(1, DP_RANKS))
+    ok = max(rollout.values()) <= DP_ROLLOUT_TOL and max(used.values()) <= 1.0 and ranks_equal
+    emit({"phase": "dp_reference", "ok": ok, "card": card_line, "ranks": DP_RANKS,
+          "backend": DP_BACKEND, "device": str(dev), "envs": 8, "steps": 3, "iterations": 2,
+          "note": "the ranks share one card; NCCL across cards is not exercised on a "
+                  "one-card machine",
+          "rollout_max_abs": rollout, "rollout_tol": DP_ROLLOUT_TOL,
+          "params_max_abs": params_abs, "params_tol": {"atol": DP_PARAMS_ATOL,
+                                                       "rtol": DP_PARAMS_RTOL},
+          "params_share_of_tol": max(used.values()),
+          "worst_leaf": max(used, key=used.get), "ranks_params_equal": ranks_equal})
+    if not ok:
+        raise AssertionError(f"dp_reference: two ranks vs one beyond the bars: rollout "
+                             f"{rollout}, parameters at {max(used.values())} of the bar, "
+                             f"ranks equal {ranks_equal}")
+
+
+def train_dp_run(outdir: str, logroot: str, device: str):
+    """One rank of the train-dp phase: B1 held bitwise at its shard's width
+    and rows, then :func:`run_training` of the bench configuration sharded
+    over the ranks, with the all-reduces timed (CUDA events) inside and
+    outside the update; its row, B1's check and a checksum of the
+    parameters written to ``outdir/rank<r>.json``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from legged_tracking_torch.envs import LeggedEnv, legged_env
+    from legged_tracking_torch.learn import ppo
+    from legged_tracking_torch.learn.runner import Runner, RunnerArgs
+    from legged_tracking_torch.parallel import Shard
+
+    dev = torch.device(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    env = LeggedEnv(bench_cfg(NUM_ENVS), device=dev, shard=Shard(rank, world, NUM_ENVS))
+    scan_row = scan_check(env, dev)
+    spans = {"update_allreduce": [], "other_allreduce": []}
+    in_update = [False]
+
+    def evented(fn):
+        def run(tensors, *a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(tensors, *a, **k)
+            end.record()
+            spans["update_allreduce" if in_update[0] else "other_allreduce"].append((start, end))
+            return out
+        return run
+
+    ppo.all_reduce_sum = evented(ppo.all_reduce_sum)
+    legged_env.all_reduce_sum = evented(legged_env.all_reduce_sum)
+
+    def make_runner(logdir):
+        runner = Runner(env, runner_args=RunnerArgs(log_freq=1, save_interval=2),
+                        logdir=logdir, seed=0, distributed=True)
+        update = runner.alg.update
+
+        def flagged(*a, **k):
+            in_update[0] = True
+            try:
+                return update(*a, **k)
+            finally:
+                in_update[0] = False
+        runner.alg.update = flagged
+        return runner
+
+    runner, row = run_training("train_dp", env, make_runner, iters=4, at_setup=1,
+                               logdir=os.path.join(logroot, f"rank{rank}"), writes=rank == 0,
+                               spans=spans)
+    digest = hashlib.sha256()
+    for k, v in runner.train_state.params.items():
+        digest.update(k.encode() + v.detach().cpu().numpy().tobytes())
+    upd = row.pop("update_allreduce")
+    other = row.pop("other_allreduce")
+    its = row["iterations"]
+    per_it = lambda v: [sum(v[i * len(v) // its:(i + 1) * len(v) // its]) for i in range(its)]
+    upd_it = per_it(upd)
+    row.update({"rank": rank, "local_envs": env.num_envs,
+                "allreduce_s_in_update": upd_it, "allreduce_calls_in_update": len(upd) // its,
+                "allreduce_share_of_update": sum(upd_it[1:]) / sum(row["update_s_all"][1:]),
+                "allreduce_s_outside_update": per_it(other),
+                "allreduce_calls_outside_update": len(other) // its,
+                "params_sha256": digest.hexdigest(), "scan_heights_check": scan_row})
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+
+
+def phase_train_dp(dev, card_line: str, train_row: dict):
+    """The main path over two ranks: the bench configuration at 4096 global
+    envs, 2048 a rank, two gloo ranks sharing the card, trained by
+    Runner.learn for 4 iterations; each rank held as the train phase is
+    (rank 0 the only writer), their parameters equal, and the global train
+    env-steps/s printed beside the 1-rank train phase's of this call."""
+    from legged_tracking_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out:
+        logroot = os.path.join(out, "runs")
+        launch(train_dp_run, DP_RANKS, out, logroot, str(dev), backend=DP_BACKEND,
+               device=str(dev))
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        writers = sorted(os.listdir(logroot))
+    digests = {r["params_sha256"] for r in ranks}
+    if len(digests) != 1:
+        raise AssertionError(f"train_dp: the ranks' parameters differ: {digests}")
+    if writers != ["rank0"] or not ranks[0]["logdir_files"] or ranks[1]["logdir_files"]:
+        raise AssertionError(f"train_dp: logdirs written {writers}, rank 0 "
+                             f"{ranks[0]['logdir_files']}, rank 1 {ranks[1]['logdir_files']}")
+    # the ranks' iterations meet at every all-reduce: the global rate is the
+    # global envs' steps over the slower rank's iteration
+    it_s = [max(r["iteration_s_all"][i] for r in ranks) for i in range(1, ranks[0]["iterations"])]
+    rate = ranks[0]["envs"] * ranks[0]["steps"] / (sum(it_s) / len(it_s))
+    emit({"phase": "train_dp", "ok": True, "card": card_line, "ranks": DP_RANKS,
+          "backend": DP_BACKEND, "device": str(dev),
+          "note": "the ranks share one card; NCCL across cards is not exercised on a "
+                  "one-card machine",
+          "envs": ranks[0]["envs"], "envs_per_rank": ranks[0]["local_envs"],
+          "train_env_steps_per_s": rate,
+          "one_rank_train_env_steps_per_s": train_row["train_env_steps_per_s"],
+          "params_sha256": digests.pop(), "logdirs_written": writers,
+          "per_rank": [{k: r[k] for k in (
+              "rank", "iteration_s_all", "rollout_s", "update_s", "rollout_s_all",
+              "update_s_all", "allreduce_share_of_update", "allreduce_s_in_update",
+              "allreduce_calls_in_update", "allreduce_s_outside_update",
+              "allreduce_calls_outside_update", "peak_mem_gib", "setup_s",
+              "scan_heights_launches", "per_iteration", "at_setup", "scan_heights_check",
+              "last", "logdir_files")} for r in ranks]})
+    return {f"train_dp_rank{r['rank']}": {"scan_heights": r["scan_heights_launches"]}
+            for r in ranks}
 
 
 # the eval-reference phase's limits on the rollout's errors (see there)
@@ -1289,19 +1539,25 @@ def main(argv=None) -> int:
     try:
         logdirs = {name: os.path.join(runs, name)
                    for name in ("bench", "goal", "hierarchy", "velocity")}
+        trained = {}
         for path, fn, run in (("train", phase_train, "bench"),
                               ("train_goal", phase_train_goal, "goal"),
                               ("train_hierarchy", phase_train_hierarchy, "hierarchy")):
-            by_path[path] = timed(path, fn, dev, card_line, args.profile, logdirs[run])
+            trained[path] = timed(path, fn, dev, card_line, args.profile, logdirs[run])
+            by_path[path] = {"scan_heights": trained[path]["scan_heights_launches"]}
         # the velocity path observes no heights: B1 is not one of its kernels
-        off_path = {"train_velocity": timed("train_velocity", phase_train_velocity, dev,
-                                            card_line, args.profile, logdirs["velocity"])}
+        row = timed("train_velocity", phase_train_velocity, dev, card_line, args.profile,
+                    logdirs["velocity"])
+        off_path = {"train_velocity": {"scan_heights": row["scan_heights_launches"]}}
         timed("eval_reference", phase_eval_reference, dev, card_line, logdirs["bench"])
         eval_paths, eval_off = timed("eval", phase_eval, dev, card_line, logdirs)
         by_path.update(eval_paths)
         off_path.update(eval_off)
     finally:
         shutil.rmtree(runs, ignore_errors=True)
+    # data parallelism: two ranks against one, then the main path over two
+    timed("dp_reference", phase_dp_reference, dev, card_line)
+    by_path.update(timed("train_dp", phase_train_dp, dev, card_line, trained["train"]))
     emit({"phase_seconds": seconds, "card": card_line})
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}

@@ -18,6 +18,14 @@ With ``commands.sampling_based_planning`` the batched local planner
 step and keeps the planned target where ``do_plan`` holds.  It reads the
 scan stored in ``EnvState.measured_heights`` by the previous step, so a step
 pays one scan.
+
+With a ``shard`` (:class:`..parallel.Shard`) the env holds rank r's n = N / W
+envs of a data-parallel run: the terrain and every per-env constant are built
+at the global width N and the rank keeps its rows, ``draw`` draws at the
+global width and keeps the rank's rows, and the step's reductions over the
+env axis (the reward terms' batch-sign split, the velocity curriculum's
+bump) are all-reduced.  So the rank's envs step as their rows of the 1-rank
+run of N envs do.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 
 from ..actuation import actuators
 from ..config import Cfg
+from ..parallel import Shard, all_reduce_sum
 from ..physics import model as go1_model
 from ..physics.contact import ContactWindow
 from ..physics.engine import PhysParams, PhysState, control_step
@@ -65,13 +74,14 @@ class LeggedEnv:
     PLAN_CHUNK_BYTES = 2 ** 31
 
     def __init__(self, cfg: Cfg, terrain: TerrainArrays | None = None,
-                 seed: int | None = None, device="cuda"):
+                 seed: int | None = None, device="cuda", shard: Shard | None = None):
         cfg.parse()
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = go1_model.make_go1_model(self.device)
         seed = cfg.seed if seed is None else seed
-        self.num_envs = cfg.env.num_envs
+        self.num_envs = self.num_envs_global = cfg.env.num_envs
+        self.shard = None
         self.terrain = (terrain if terrain is not None
                         else build_terrain(cfg, self.num_envs, seed, device=self.device))
         self.tile_table = bf16_table(self.terrain)
@@ -145,6 +155,37 @@ class LeggedEnv:
         self._traj_fn = TRAJ_FUNCTIONS[cfg.commands.traj_function]
         self._init_planner()
         self.state: EnvState | None = None
+        if shard is not None:
+            self.set_shard(shard)
+
+    def set_shard(self, shard: Shard):
+        """Keep rank ``shard.rank``'s envs of the ``num_envs_global`` built:
+        its rows of the terrain's per-env arrays, and from here on its rows
+        of every draw.  Call before the first reset."""
+        if self.shard is not None or self.state is not None:
+            raise RuntimeError("set_shard: the env is already sharded or stepped")
+        if shard.num_envs_global != self.num_envs_global:
+            raise ValueError(f"a shard of {shard.num_envs_global} envs for an env of "
+                             f"{self.num_envs_global}")
+        t = self.terrain
+        self.terrain = t._replace(env_tile=shard.shard_rows(t.env_tile),
+                                  env_origin=shard.shard_rows(t.env_origin),
+                                  env_terrain_origin=shard.shard_rows(t.env_terrain_origin))
+        self.num_envs = shard.num_envs
+        self.shard = shard
+
+    def env_ids(self) -> torch.Tensor:
+        """(n,) global ids of the envs this env holds."""
+        if self.shard is not None:
+            return self.shard.global_ids(self.device)
+        return torch.arange(self.num_envs, device=self.device)
+
+    def _rank_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks of a data-parallel run (itself on
+        one)."""
+        if self.shard is None or self.shard.world == 1:
+            return x
+        return all_reduce_sum([x])[0]
 
     def _init_planner(self):
         """Candidate poses and their quadform weights (reference :142-172).
@@ -192,12 +233,26 @@ class LeggedEnv:
         ``tag`` names the draw after the JAX env's key derivation: its first
         element is the key ("reset": the per-env reset keys, "step": the
         per-env step key, "global": the global key), the rest are the
-        ``fold_in`` tags applied to it."""
+        ``fold_in`` tags applied to it.
+
+        Every draw but a ``"global"`` one has a leading env axis.  Under a
+        shard it is drawn at the global width, from the generator every
+        rank seeds alike, and the rank keeps its rows; a global draw stays
+        whole, the same on every rank."""
+        sh = self.shard
+        rows = sh is not None and tag[0] != "global"
+        if rows:
+            if shape[0] != self.num_envs:
+                raise ValueError(f"draw {tag}: leading axis {shape[0]} is not the "
+                                 f"{self.num_envs} envs of the shard")
+            shape = (sh.num_envs_global,) + tuple(shape[1:])
         if integer:
-            return torch.randint(int(lo), int(hi), shape, generator=self.generator,
-                                 device=self.device, dtype=torch.int32)
-        u = torch.rand(shape, generator=self.generator, device=self.device)
-        return lo + (hi - lo) * u
+            x = torch.randint(int(lo), int(hi), shape, generator=self.generator,
+                              device=self.device, dtype=torch.int32)
+        else:
+            x = lo + (hi - lo) * torch.rand(shape, generator=self.generator,
+                                            device=self.device)
+        return sh.shard_rows(x) if rows else x
 
     # ------------------------------------------------------------ reset core
     def _sample_dof_props(self, tag, state_vals):
@@ -273,12 +328,12 @@ class LeggedEnv:
         ct = cfg.curriculum_thresholds
         dist_i = target_dist.expand(N)
         if ct.cl_fix_target and ct.cl_dist_mix > 0.0:
-            n_train = N - int(getattr(cfg.env, "num_eval_envs", 0))
+            n_train = self.num_envs_global - int(getattr(cfg.env, "num_eval_envs", 0))
             n_mix = int(round(ct.cl_dist_mix * n_train))
             u = self.draw(tag + (15,), (N,), 0.0, 1.0)
             mixed = ct.cl_start_target_dist + u * torch.clamp(
                 dist_i - ct.cl_start_target_dist, min=0.0)
-            dist_i = torch.where(torch.arange(N, device=dev) < n_mix, mixed, dist_i)
+            dist_i = torch.where(self.env_ids() < n_mix, mixed, dist_i)
         traj = self._traj_fn(lambda *a, **k: self.draw(*a, **k), tag + (14,), base_pos, cfg,
                              self.terrain, dist_i[:, None])
 
@@ -631,7 +686,7 @@ class LeggedEnv:
                 scale_vec[self._exp_yaw_idx] = state.exploration_yaw_scale
         rews = terms * scale_vec
         # batch-sign split (reference compute_reward, :328-335)
-        term_sign = torch.sum(rews, dim=0) >= 0.0
+        term_sign = self._rank_sum(torch.sum(rews, dim=0)) >= 0.0
         rew_pos = torch.sum(rews * term_sign, dim=-1)
         rew_neg = torch.sum(rews * ~term_sign, dim=-1)
         rew = torch.sum(rews, dim=-1)

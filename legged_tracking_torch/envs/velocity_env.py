@@ -49,7 +49,7 @@ LOCAL_RANGE = np.array([0.55, 0.55, 0.55, 0.55, 0.35, 0.25, 0.25, 0.25, 0.25,
 
 class VelocityTrackingEnv(LeggedEnv):
     def __init__(self, cfg: Cfg, terrain: TerrainArrays | None = None,
-                 seed: int | None = None, device="cuda"):
+                 seed: int | None = None, device="cuda", shard=None):
         cfg.env.command_type = "velocity"
         cfg.rewards.reward_container_name = getattr(
             cfg.rewards, "reward_container_name", "CoRLRewards") or "CoRLRewards"
@@ -60,7 +60,7 @@ class VelocityTrackingEnv(LeggedEnv):
             else:
                 terrain = build_velocity_terrain(cfg.terrain, cfg.env.num_envs, seed_,
                                                  device=device)
-        super().__init__(cfg, terrain=terrain, seed=seed_, device=device)
+        super().__init__(cfg, terrain=terrain, seed=seed_, device=device, shard=shard)
         dev = self.device
 
         c = cfg.commands
@@ -177,7 +177,8 @@ class VelocityTrackingEnv(LeggedEnv):
                 ok = ok & (command_sums[:, i] * self._inv_ep_used > float(self._track_thresh[i]))
         if all(i < 0 for i in self._track_idx):
             ok = torch.zeros_like(mask)
-        weights = self.curriculum.update(state_weights, old_cats, old_bins, ok & mask)
+        weights = self.curriculum.update(state_weights, old_cats, old_bins, ok & mask,
+                                         reduce=self._rank_sum)
 
         # 2. new categories, bins and values
         cat = self.draw(tag + (40,), (N,), 0, len(self.category_names), integer=True)
@@ -411,7 +412,7 @@ class VelocityTrackingEnv(LeggedEnv):
             feet_contact_filt=contact_filt, base_quat=base_quat)
         terms = torch.stack([fn(ctx, cfg) for fn in self.reward_fns], dim=-1)
         rews = terms * self._reward_scales_t
-        term_sign = torch.sum(rews, dim=0) >= 0.0
+        term_sign = self._rank_sum(torch.sum(rews, dim=0)) >= 0.0
         rew_pos = torch.sum(rews * term_sign, dim=-1)
         rew_neg = torch.sum(rews * ~term_sign, dim=-1)
         rew = torch.sum(rews, dim=-1)

@@ -13,15 +13,31 @@ changes them in place.  Histories are stored bf16, as the env keeps them,
 and read as float32 by the policy, as flax promotes them.  The adaptive
 learning rate stays a float32 tensor on the device and its branches are
 ``torch.where``, so a minibatch never waits for the host.
+
+Under data parallelism the env is a shard (:class:`..parallel.Shard`): rank r
+holds the global envs ``[r n, (r + 1) n)`` and the same parameters as every
+rank.  Random numbers are drawn at the global width from the generator every
+rank seeds alike and sliced (the action noise), or drawn whole (the
+minibatch permutation of the global ``t * N + n`` flat index, JAX's layout);
+each minibatch keeps, on each rank, the positions whose sample lies in its
+shard.  Every mean over the env axis is a local sum over the global count,
+all-reduced: the advantage normalization (count, sum and sum of squares in
+float64), the losses, KL and the adaptation module's 80/20 split (by the
+sample's position in the global minibatch), the obs normalizer's batch
+statistics and the logged episodic metrics.  Gradients are all-reduced in
+one flat buffer before the global-norm clip, so every rank takes the same
+Adam step and the same adaptive-rate decision.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from ..parallel import all_reduce_sum
 from .actor_critic import (ACArgs, ActorCriticCSE, normal_entropy, normal_kl,
                            normal_log_prob)
 from .optim import AdamState, adam_init, adam_step, clip_by_global_norm
@@ -50,14 +66,36 @@ class PPOArgs:
     max_adaptive_lr: float = 1e-2
     max_grad_norm: float = 1.0
     num_steps_per_env: int = 24
-    # the JAX package's O(B) shuffle for sharded batches and its windowed
-    # history storage (a TPU layout device with bitwise-equal histories);
-    # neither is ported, both are off by default
+    # the JAX package's O(B) shuffle (cheap_perm) for large batches, and its
+    # windowed history storage (a TPU layout device with bitwise-equal
+    # histories, not ported); both off by default
     cheap_shuffle: bool = False
     windowed_history: bool = False
     # trailing cfg.env.num_eval_envs envs act with the deterministic teacher
     # instead of the student
     eval_expert: bool = False
+
+
+def cheap_perm(B: int, T: int, N: int, a0, c1, c2) -> torch.Tensor:
+    """O(B) bijection of [0, B) (the JAX package's ``_cheap_perm``,
+    ``learn/ppo.py:34``): affine -> (t, n) digit swap -> affine.  ``a0``:
+    the two multipliers' starts, each moved to the first of the next 128
+    integers coprime to B (1 if none is); ``c1``, ``c2``: the offsets.  The
+    arithmetic is JAX's int32 arithmetic, wrapping included, taken exactly in
+    int64."""
+    device = c1.device
+    i32 = lambda x: torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
+
+    def mult(a):
+        cand = a.long() + torch.arange(128, device=device)
+        ok = torch.gcd(cand, torch.full_like(cand, B)) == 1
+        return torch.where(ok.any(), cand[torch.argmax(ok.int())], 1)
+
+    a1, a2 = (mult(a) for a in a0)
+    s = torch.arange(B, device=device)
+    p = torch.remainder(i32(a1 * s + c1.long()), B)
+    p = (p % N) * T + (p // N)          # digit swap: a bijection since B = T * N
+    return torch.remainder(i32(a2 * p + c2.long()), B)
 
 
 class TrainState(NamedTuple):
@@ -107,8 +145,6 @@ class PPO:
         ``act_teacher``); the CSE MLP of ``ac_args`` when None."""
         self.env = env
         self.args = args or PPOArgs()
-        if self.args.cheap_shuffle:
-            raise NotImplementedError("PPOArgs.cheap_shuffle is not ported (ROADMAP A13)")
         if self.args.windowed_history:
             raise NotImplementedError("PPOArgs.windowed_history, a TPU layout device, "
                                       "is not ported")
@@ -121,10 +157,15 @@ class PPO:
         self.normalize_obs = bool(getattr(getattr(self.ac, "args", None), "normalize_obs",
                                           False))
         self.device = env.device
+        # a data-parallel rank's shard of the envs; n_eval, n_train and
+        # n_mix count global envs
+        self.shard = env.shard
+        self.dp = self.shard is not None and self.shard.world > 1
+        self.num_envs_global = env.num_envs_global
         # the trailing num_eval_envs envs act deterministically and never
         # enter GAE or the update (reference BaseTask, base_task.py:44-49)
         self.n_eval = int(getattr(env.cfg.env, "num_eval_envs", 0))
-        self.n_train = env.num_envs - self.n_eval
+        self.n_train = self.num_envs_global - self.n_eval
         # the leading n_mix train envs rehearse easier distances
         # (cl_dist_mix); the curriculum reads the frontier_* metrics
         ct = getattr(env.cfg, "curriculum_thresholds", None)
@@ -144,6 +185,23 @@ class PPO:
             iteration=0,
             obs_rms=(RunningMeanStd.create((self.env.num_obs_history,), device=self.device)
                      if self.normalize_obs else None))
+
+    def _rows(self, lo: int, hi: int | None = None) -> slice:
+        """The local rows of the global envs [lo, hi)."""
+        return self.shard.local_slice(lo, hi) if self.shard is not None else slice(lo, hi)
+
+    def _perm(self, B: int, T: int, N: int) -> torch.Tensor:
+        """A permutation of [0, B) from the PPO generator (the same on every
+        rank): ``randperm``, or with ``cheap_shuffle`` :func:`cheap_perm` of
+        the (T, N) layout (of (1, B) where B is not T * N), its multiplier
+        starts drawn in [2, amax) and its offsets in [0, B) as JAX's are."""
+        if not self.args.cheap_shuffle:
+            return torch.randperm(B, generator=self.generator, device=self.device)
+        amax = max(3, min((2 ** 31 - 1 - B) // max(B, 1), 1 << 20))
+        r = lambda lo, hi: torch.randint(lo, hi, (), generator=self.generator,
+                                         device=self.device, dtype=torch.int32)
+        draws = (r(2, amax), r(2, amax)), r(0, B), r(0, B)
+        return cheap_perm(B, T, N, *draws) if B == T * N else cheap_perm(B, 1, B, *draws)
 
     def warmup_init(self) -> AdamState:
         """A fresh optimizer state for :meth:`warmup_iteration`."""
@@ -173,20 +231,26 @@ class PPO:
             p = obs_dict["privileged_obs"]
             if self.normalize_obs:
                 h16, obs_rms = (obs_rms.normalize(h16).to(h16.dtype),
-                                obs_rms.update(obs_dict["obs_history"]))
+                                obs_rms.update(obs_dict["obs_history"],
+                                               all_reduce_sum if self.dp else None))
             h = h16.float()
             mean, std = ac.action_dist(o, p, h)
             std = std.expand_as(mean)
-            eps = (action_noise[t] if action_noise is not None else
-                   torch.randn(mean.shape, generator=self.generator, device=mean.device))
+            if action_noise is not None:
+                eps = action_noise[t]
+            else:
+                # at the global width, the shard's rows kept
+                eps = torch.randn((self.num_envs_global,) + mean.shape[1:],
+                                  generator=self.generator, device=mean.device)
+                if self.shard is not None:
+                    eps = self.shard.shard_rows(eps)
             actions = mean + std * eps
             if self.n_eval:
                 # trailing eval envs act deterministically (Runner.learn,
                 # ppo_cse/__init__.py:160-167)
                 a_det = (ac.act_teacher(o, p, h) if self.args.eval_expert
                          else ac.act_student(o, h))
-                is_eval = (torch.arange(actions.shape[0], device=actions.device)
-                           >= self.n_train)[:, None]
+                is_eval = (self.env.env_ids() >= self.n_train)[:, None]
                 actions = torch.where(is_eval, a_det, actions)
             log_prob = normal_log_prob(mean, std, actions)
             value = ac.evaluate(o, p, h)
@@ -230,58 +294,99 @@ class PPO:
             advs[t] = adv
         advs = torch.stack(advs)
         returns = advs + traj.values
-        norm_advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
-        return returns, norm_advs
+        if not self.dp:
+            return returns, (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+        a = advs.double()
+        n, s, ss = all_reduce_sum([torch.full((), a.numel(), dtype=torch.float64,
+                                              device=a.device), a.sum(), a.square().sum()])
+        mean = s / n
+        std = torch.sqrt(torch.clamp(ss / n - mean * mean, min=0.0))
+        return returns, (advs - mean.float()) / (std.float() + 1e-8)
 
     # -------------------------------------------------------------- update
     def _permuted(self, tensors, perm):
-        """Gather (T, N, ...) tensors once into permuted order, grouped as
-        (num_mini_batches, mb, ...): each minibatch is then a contiguous
-        slice, and the same permutation serves every epoch."""
-        nm = self.args.num_mini_batches
-        T, N = tensors[0].shape[:2]
-        B = T * N
-        mb = B // nm
-        if perm is None:
-            perm = torch.randperm(nm * mb, generator=self.generator, device=self.device)
-        perm = perm.to(self.device)
-        return [x.reshape((B,) + x.shape[2:])[perm].reshape((nm, mb) + x.shape[2:])
-                for x in tensors]
+        """The minibatches of (T, N, ...) tensors under one permutation of
+        the flattened samples, which serves every epoch.
 
-    def _value_loss(self, value, target_values, returns):
+        One rank: the tensors gathered once into permuted order as
+        (num_mini_batches, mb, ...), each minibatch a contiguous slice.  Under
+        data parallelism: N is the rank's train envs, the permutation runs
+        over the global ``t * N_global + n`` index, and minibatch i is the
+        rank's samples among its positions, in order, with their positions
+        in the global minibatch (the adaptation split reads them).  Returns
+        (mb, [(tensors_i, positions_i or None) for each minibatch])."""
+        nm = self.args.num_mini_batches
+        T, n = tensors[0].shape[:2]
+        N = self.n_train if self.dp else n
+        mb = T * N // nm
+        if perm is None:
+            perm = self._perm(nm * mb, T, N)
+        perm = perm.to(self.device)
+        flat = [x.reshape((T * n,) + x.shape[2:]) for x in tensors]
+        if not self.dp:
+            grouped = [x[perm].reshape((nm, mb) + x.shape[1:]) for x in flat]
+            return mb, [([x[i] for x in grouped], None) for i in range(nm)]
+        t, e = perm // N, perm % N - self.shard.start
+        mine = (e >= 0) & (e < n)
+        pos = torch.arange(mb, device=self.device)
+        batches = []
+        for i in range(nm):
+            sl = slice(i * mb, (i + 1) * mb)
+            keep = mine[sl]
+            idx = (t[sl] * n + e[sl])[keep]
+            batches.append(([x[idx] for x in flat], pos[keep]))
+        return mb, batches
+
+    def _mean(self, mb):
+        """The minibatch mean: ``torch.mean`` on one rank; under data
+        parallelism this rank's sum over the global count of the minibatch's
+        elements, which the all-reduce completes."""
+        if not self.dp:
+            return torch.mean
+        return lambda x: torch.sum(x) / (mb * math.prod(x.shape[1:]))
+
+    def _value_loss(self, value, target_values, returns, mean=torch.mean):
         """The value loss, clipped around the rollout's values by default."""
         a = self.args
         if not a.use_clipped_value_loss:
-            return torch.mean(torch.square(returns - value))
+            return mean(torch.square(returns - value))
         v_clipped = target_values + torch.clamp(value - target_values,
                                                 -a.clip_param, a.clip_param)
-        return torch.mean(torch.maximum(torch.square(value - returns),
-                                        torch.square(v_clipped - returns)))
+        return mean(torch.maximum(torch.square(value - returns),
+                                  torch.square(v_clipped - returns)))
 
-    def _minibatch_update(self, ts: TrainState, batch):
+    def _minibatch_update(self, ts: TrainState, batch, pos=None, mb=None):
+        """One minibatch step.  ``pos``, ``mb``: under data parallelism the
+        samples' positions in the global minibatch of ``mb``."""
         a = self.args
         ac = self.ac
         params = ts.params
         o, h, p, actions, target_values, advantages, returns, old_lp, old_mu, old_sigma = batch
         h = h.float()
+        mean_ = self._mean(mb)
 
         mean, std = ac.action_dist(o, p, h)
         log_prob = normal_log_prob(mean, std, actions)
         value = ac.evaluate(o, p, h)
-        entropy = normal_entropy(std)
+        # per sample under data parallelism, where the mean is a share
+        entropy = normal_entropy(std.expand_as(mean) if self.dp else std)
         ratio = torch.exp(log_prob - old_lp)
         surr = -advantages * ratio
         surr_clipped = -advantages * torch.clamp(ratio, 1.0 - a.clip_param, 1.0 + a.clip_param)
-        surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
-        v_loss = self._value_loss(value, target_values, returns)
-        loss = surrogate_loss + a.value_loss_coef * v_loss - a.entropy_coef * torch.mean(entropy)
+        surrogate_loss = mean_(torch.maximum(surr, surr_clipped))
+        v_loss = self._value_loss(value, target_values, returns, mean_)
+        loss = surrogate_loss + a.value_loss_coef * v_loss - a.entropy_coef * mean_(entropy)
         # a parameter the loss does not read (the RMA policy's adaptation
         # module) takes a zero gradient, as under jax.grad
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                     materialize_grads=True)
 
         with torch.no_grad():
-            kl = torch.mean(normal_kl(old_mu, old_sigma, mean, std))
+            kl = mean_(normal_kl(old_mu, old_sigma, mean, std))
+            v_loss, surrogate_loss = v_loss.detach(), surrogate_loss.detach()
+            if self.dp:
+                *grads, kl, v_loss, surrogate_loss = all_reduce_sum(
+                    list(grads) + [kl, v_loss, surrogate_loss])
             # adaptive-KL learning rate (ppo.py:110-124), from this
             # minibatch's KL, applied to this minibatch's step.  The JAX
             # package's lr / 1.5 compiles to a multiply by the float32
@@ -299,20 +404,31 @@ class PPO:
         # parameters: 80/20 train/test split; the target is the policy's
         # adaptation_target (the privileged obs, or the RMA encoder's
         # latent), without its gradient
-        n_train = h.shape[0] // 5 * 4
+        n_train = (mb if self.dp else h.shape[0]) // 5 * 4
         adapt_opt_state = ts.adapt_opt_state
         ad_loss = ad_test = torch.zeros((), device=self.device)
         for _ in range(a.num_adaptation_module_substeps):
             with torch.no_grad():
                 target = ac.adaptation_target(p)
             pred = ac.adapt(h)
-            ad_loss = torch.mean(torch.square(pred[:n_train] - target[:n_train]))
-            ad_test = torch.mean(torch.square(pred[n_train:] - target[n_train:])).detach()
+            if self.dp:
+                # the split by the sample's position in the global minibatch
+                sq = torch.square(pred - target)
+                train = (pos < n_train).reshape((-1,) + (1,) * (sq.ndim - 1))
+                d = math.prod(sq.shape[1:])
+                ad_loss = torch.sum(sq * train) / (n_train * d)
+                ad_test = torch.sum(sq.detach() * ~train) / ((mb - n_train) * d)
+            else:
+                ad_loss = torch.mean(torch.square(pred[:n_train] - target[:n_train]))
+                ad_test = torch.mean(torch.square(pred[n_train:] - target[n_train:])).detach()
             ad_grads = torch.autograd.grad(ad_loss, list(params.values()),
                                            allow_unused=True, materialize_grads=True)
+            ad_loss = ad_loss.detach()
+            if self.dp:
+                *ad_grads, ad_loss, ad_test = all_reduce_sum(list(ad_grads) + [ad_loss, ad_test])
             adapt_opt_state = adam_step(params, ad_grads, adapt_opt_state,
                                         a.adaptation_module_learning_rate)
-        stats = torch.stack([x.detach() for x in (v_loss, surrogate_loss, ad_loss, ad_test, kl)])
+        stats = torch.stack([v_loss, surrogate_loss, ad_loss, ad_test, kl])
         return ts._replace(opt_state=opt_state, adapt_opt_state=adapt_opt_state,
                            learning_rate=lr), stats
 
@@ -321,13 +437,13 @@ class PPO:
         ``num_mini_batches`` minibatches.  ``perm``: the permutation of the
         flattened (T * N) samples; drawn from the PPO generator when None."""
         a = self.args
-        data = self._permuted(
+        mb, batches = self._permuted(
             (traj.obs, traj.obs_history, traj.privileged_obs, traj.actions, traj.values,
              advantages, returns, traj.log_prob, traj.mu, traj.sigma), perm)
         stats = []
         for _ in range(a.num_learning_epochs):
-            for i in range(a.num_mini_batches):
-                ts, s = self._minibatch_update(ts, [x[i] for x in data])
+            for batch, pos in batches:
+                ts, s = self._minibatch_update(ts, batch, pos, mb)
                 stats.append(s)
         mean_stats = torch.stack(stats).mean(dim=0)
         metrics = {"value_loss": mean_stats[0], "surrogate_loss": mean_stats[1],
@@ -348,23 +464,26 @@ class PPO:
             env_state, obs_dict, action_noise, ts.obs_rms)
         traj, last_values = self._train_part(traj, self._last_values(last_obs, obs_rms))
         returns, _ = self.compute_gae(traj, last_values)
-        data = self._permuted((traj.obs, traj.obs_history, traj.privileged_obs,
-                               traj.values, returns), perm)
+        mb, batches = self._permuted((traj.obs, traj.obs_history, traj.privileged_obs,
+                                      traj.values, returns), perm)
         params = ts.params
         v_ls = []
         for _ in range(a.num_learning_epochs):
-            for i in range(a.num_mini_batches):
-                o, h, p, target_values, rets = (x[i] for x in data)
-                v_l = self._value_loss(self.ac.evaluate(o, p, h.float()), target_values, rets)
+            for (o, h, p, target_values, rets), _ in batches:
+                v_l = self._value_loss(self.ac.evaluate(o, p, h.float()), target_values, rets,
+                                       self._mean(mb))
                 grads = torch.autograd.grad(v_l, list(params.values()),
                                             allow_unused=True, materialize_grads=True)
                 grads = [g if k.startswith("critic_body.") else torch.zeros_like(g)
                          for k, g in zip(params, grads)]
+                v_l = v_l.detach()
+                if self.dp:
+                    *grads, v_l = all_reduce_sum(grads + [v_l])
                 with torch.no_grad():
                     warmup_opt_state = adam_step(
                         params, clip_by_global_norm(grads, a.max_grad_norm),
                         warmup_opt_state, a.learning_rate)
-                v_ls.append(v_l.detach())
+                v_ls.append(v_l)
         if self.normalize_obs:
             ts = ts._replace(obs_rms=obs_rms)
         metrics = {"value_loss": torch.stack(v_ls).mean()}
@@ -377,7 +496,8 @@ class PPO:
         ppo_cse/__init__.py:177-178)."""
         if not self.n_eval:
             return traj, last_values
-        return Transition(*(x[:, :self.n_train] for x in traj)), last_values[:self.n_train]
+        sl = self._rows(0, self.n_train)
+        return Transition(*(x[:, sl] for x in traj)), last_values[sl]
 
     @torch.no_grad()
     def _last_values(self, last_obs, obs_rms):
@@ -407,31 +527,42 @@ class PPO:
             ts = ts._replace(obs_rms=obs_rms)
 
         # episodic metrics: done-masked means over the rollout window, the
-        # train and eval populations apart (ppo_cse/__init__.py:137-140,200-214)
-        def ep_metrics(sl, prefix=""):
+        # train and eval populations apart (ppo_cse/__init__.py:137-140,200-214);
+        # sums first, all-reduced once under data parallelism, then divided
+        def ep_sums(sl):
             done = roll_metrics["done"][:, sl]                 # (T, n)
-            n_done = torch.clamp(torch.sum(done), min=1)
             dmask = done.float()
-            dmean = lambda x: torch.sum(x[:, sl] * dmask) / n_done
-            ep_sums = roll_metrics["episode_sums"][:, sl]      # (T, n, K)
-            metrics[prefix + "num_episodes"] = torch.sum(done)
-            metrics[prefix + "episode_sums_mean"] = (
-                torch.sum(ep_sums * dmask[..., None], dim=(0, 1)) / n_done)
-            metrics[prefix + "episode_length_mean"] = dmean(
-                roll_metrics["episode_length"].float())
-            metrics[prefix + "reached_mean"] = dmean(roll_metrics["reached"].float())
-            metrics[prefix + "goal_distance_mean"] = dmean(roll_metrics["goal_distance"])
+            dsum = lambda x: torch.sum(x[:, sl] * dmask)
+            return [torch.sum(done),
+                    torch.sum(roll_metrics["episode_sums"][:, sl] * dmask[..., None], dim=(0, 1)),
+                    dsum(roll_metrics["episode_length"].float()),
+                    dsum(roll_metrics["reached"].float()), dsum(roll_metrics["goal_distance"])]
 
         if "video" in roll_metrics:
             metrics["video"] = roll_metrics["video"]
         with torch.no_grad():
-            metrics["mean_reward_per_step"] = torch.mean(traj_train.rewards)
-            metrics["action_std_mean"] = torch.mean(traj.sigma[-1])
-            ep_metrics(slice(0, self.n_train))
+            pops = [("", (0, self.n_train))]
             if self.n_mix:
-                ep_metrics(slice(self.n_mix, self.n_train), prefix="frontier_")
+                pops.append(("frontier_", (self.n_mix, self.n_train)))
             if self.n_eval:
-                ep_metrics(slice(self.n_train, None), prefix="eval_")
+                pops.append(("eval_", (self.n_train, None)))
+            sums = [x for _, rows in pops for x in ep_sums(self._rows(*rows))]
+            if self.dp:
+                rew, std, *sums = all_reduce_sum(
+                    [torch.sum(traj_train.rewards), torch.sum(traj.sigma[-1])] + sums)
+                metrics["mean_reward_per_step"] = rew / (traj.rewards.shape[0] * self.n_train)
+                metrics["action_std_mean"] = std / (self.num_envs_global * traj.sigma.shape[-1])
+            else:
+                metrics["mean_reward_per_step"] = torch.mean(traj_train.rewards)
+                metrics["action_std_mean"] = torch.mean(traj.sigma[-1])
+            for i, (prefix, _) in enumerate(pops):
+                n_eps, ep_sum, length, reached, dist = sums[5 * i:5 * i + 5]
+                n_done = torch.clamp(n_eps, min=1)
+                metrics[prefix + "num_episodes"] = n_eps
+                metrics[prefix + "episode_sums_mean"] = ep_sum / n_done
+                metrics[prefix + "episode_length_mean"] = length / n_done
+                metrics[prefix + "reached_mean"] = reached / n_done
+                metrics[prefix + "goal_distance_mean"] = dist / n_done
         return ts, env_state, last_obs, metrics
 
     # ------------------------------------------------------------ policies

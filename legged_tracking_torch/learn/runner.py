@@ -21,6 +21,15 @@ rollout records env0's frames and the runner renders them to
 ``videos/train_it*.mp4`` (:mod:`..io.render`).  The runner is held against the JAX package,
 so it keeps that package's runner behaviour, the four faults ADVICE.md
 lists included (ROADMAP.md §C).
+
+Data parallelism (``num_devices`` K > 1, or ``distributed``) runs one Runner
+per rank of an initialized process group (:mod:`..parallel.distributed`):
+the env becomes the rank's shard of its envs, every rank builds the same
+parameters from the shared seed (checked equal at start), PPO all-reduces
+what it reduces, so the metrics and the curriculum decisions are global and
+alike on every rank, and only rank 0 writes ``parameters.pkl``,
+``metrics.jsonl``, checkpoints, the best snapshot and ``policy.npz`` (the
+JAX runner's process 0).  The training video is off in such a run.
 """
 
 from __future__ import annotations
@@ -34,10 +43,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io.checkpoint import (adam_from_checkpoint, adam_to_checkpoint, export_policy_npz,
                              flax_params_to_state_dict, load_pickle, state_dict_to_flax_params)
 from .actor_critic import ACArgs
+from ..parallel import Shard, check_replicated
 from .metrics_caches import DistCache, SlotCache
 from .ppo import PPO, PPOArgs, copy_state
 from .utils import RunningMeanStd
@@ -65,9 +76,13 @@ class Runner:
                  ppo_args: PPOArgs | None = None, ac_args: ACArgs | None = None,
                  logdir: str | None = None, log_wandb: bool = False, seed: int = 1,
                  ac=None, num_devices: int | None = None, distributed: bool = False):
-        if distributed or (num_devices is not None and num_devices > 1):
-            raise NotImplementedError("data parallelism (num_devices, distributed) is not "
-                                      "ported yet (ROADMAP A13)")
+        self.distributed = distributed or (num_devices is not None and num_devices > 1)
+        self.rank = 0
+        if self.distributed:
+            self.rank = self._join_shard(env, None if distributed else num_devices)
+            if self.rank != 0:
+                # host-side artifacts are rank 0's (JAX runner.py:72-78)
+                logdir, log_wandb = None, False
         self.env = env
         self.runner_args = runner_args or RunnerArgs()
         ppo_args = ppo_args or PPOArgs()
@@ -79,8 +94,12 @@ class Runner:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(s_init)
             self.alg = PPO(env, ac_args=ac_args, args=ppo_args, ac=ac, seed=s_act)
-        # env0's frames are recorded only for the training video
-        self.alg.record_video = self.runner_args.save_video_interval > 0 and bool(logdir)
+        if self.distributed and dist.get_world_size() > 1:
+            check_replicated(self.alg.ac.state_dict())
+        # env0's frames are recorded only for the training video, which is
+        # off under data parallelism (env0 is rank 0's; JAX runner.py:291-293)
+        self.alg.record_video = (self.runner_args.save_video_interval > 0 and bool(logdir)
+                                 and not self.distributed)
         self._video_buf = []
         self.logdir = logdir
         self.log_wandb = log_wandb
@@ -127,6 +146,26 @@ class Runner:
         self._its_since_switch = 0
 
     # --------------------------------------------------------------- helpers
+    @staticmethod
+    def _join_shard(env, world: int | None) -> int:
+        """Make ``env`` this rank's shard of its envs (unless it is one
+        already) in the initialized process group, of world size ``world``
+        when given; returns the rank."""
+        if not dist.is_initialized():
+            need = f"of world size {world}" if world else "(parallel.init_distributed)"
+            raise RuntimeError(f"data parallelism needs a process group {need}; none is "
+                               f"initialized")
+        rank, size = dist.get_rank(), dist.get_world_size()
+        if world is not None and size != world:
+            raise RuntimeError(f"num_devices={world} needs a process group of world size "
+                               f"{world}, not {size}")
+        if env.shard is None:
+            env.set_shard(Shard(rank, size, env.num_envs))
+        elif (env.shard.rank, env.shard.world) != (rank, size):
+            raise ValueError(f"the env is shard {env.shard.rank} of {env.shard.world}, the "
+                             f"process is rank {rank} of {size}")
+        return rank
+
     def _rep(self, x):
         return torch.tensor(np.asarray(x, np.float32), device=self.device)
 
@@ -208,7 +247,10 @@ class Runner:
         cfg = env.cfg
         ct = cfg.curriculum_thresholds
         t0 = time.time()
-        steps_per_iter = env.num_envs * self.alg.args.num_steps_per_env
+        # timesteps and fps count the global envs
+        steps_per_iter = self.alg.num_envs_global * self.alg.args.num_steps_per_env
+        verbose = verbose and self.rank == 0
+        profile_dir = profile_dir if self.rank == 0 else None
         # critic-only warmup after a resume (resume-shock mitigation)
         wi = self.runner_args.critic_warmup_iters
         if wi > 0 and self.runner_args.resume:

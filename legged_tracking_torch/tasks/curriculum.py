@@ -87,13 +87,17 @@ class DeviceCurriculum:
         ``c + u * bin_sizes`` is a fused multiply-add)."""
         return fma(u, self.bin_sizes, self.grid[bins.long()])
 
-    def update(self, weights, categories, bins, success):
+    def update(self, weights, categories, bins, success, reduce=None):
         """Masked bump of the successful envs' bins and their neighbourhoods:
         ``einsum("nc,nb->cb")`` of the category one-hots and the hit rows.
-        The counts are small integers in float32, exact in any order."""
+        The counts are small integers in float32, exact in any order.
+        ``reduce``: where the envs are a shard of a data-parallel run, the
+        all-reduce that adds the (C, n_bins) bump over the ranks."""
         contrib = self.hits[bins.long()] * success[:, None].to(weights.dtype)   # (N, n_bins)
         cat_oh = torch.nn.functional.one_hot(categories.long(), self.num_categories)
         bump = torch.einsum("nc,nb->cb", cat_oh.to(weights.dtype), contrib)
+        if reduce is not None:
+            bump = reduce(bump)
         # reference stacking semantics (curriculum.py:148-154): overlapping
         # neighbourhoods accumulate before the clip; XLA fuses the + 0.2 *
         return torch.clamp(fma(np.float32(0.2), bump, weights), 0.0, 1.0)

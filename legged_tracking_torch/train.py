@@ -8,8 +8,11 @@ arguments from the same flags, then trains.
 
 It runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given, and never moves to the CPU by itself.  Every flag of
-``scripts/train.py`` is ported but ``--distributed``/``--num_devices``,
-which raise ``NotImplementedError`` naming the missing module.
+``scripts/train.py`` is ported.  ``--num_devices K`` trains the envs sharded
+over K ranks spawned on this host, one device each (a card per rank under
+NCCL, the default on CUDA; ``--dist_backend gloo`` lets ranks share a card
+or run on the CPU); ``--distributed`` joins a process group launched outside
+(``LTPU_*`` variables or torchrun).  Rank 0 prints and writes the logdir.
 """
 
 from __future__ import annotations
@@ -312,10 +315,13 @@ def _apply_goal_recipe(cfg):
 
 
 def check_supported(args):
-    """Raise NotImplementedError for a flag whose module is not ported."""
-    if args.distributed or (args.num_devices or 1) > 1:
-        raise NotImplementedError("--distributed/--num_devices need data parallelism "
-                                  "(ROADMAP A13)")
+    """Raise for flags that cannot go together (every flag's module is
+    ported)."""
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num_devices {args.num_devices}: at least 1")
+    if args.distributed and (args.num_devices or 1) > 1:
+        raise ValueError("--distributed joins a group launched outside; --num_devices "
+                         "spawns one: give one of them")
 
 
 def make_policy(args, cfg, env):
@@ -363,22 +369,32 @@ def make_runner(args, cfg, env, **runner_kwargs):
                   ac_args=ACArgs(normalize_obs=args.normalize_obs,
                                  max_noise_std=args.max_noise_std),
                   logdir=args.logdir, log_wandb=args.wandb, seed=args.seed,
-                  ac=make_policy(args, cfg, env))
+                  ac=make_policy(args, cfg, env), num_devices=args.num_devices,
+                  distributed=args.distributed)
 
 
 def main(args):
-    from .envs import LeggedEnv
+    """Train as the flags say, in one process or in the ranks of
+    ``--num_devices`` / ``--distributed``; returns the Runner's history (None
+    from the parent of spawned ranks)."""
+    from .parallel import run_ranks
 
     check_supported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device "
-                           "(--device cpu trains on the CPU)")
+    return run_ranks(train_rank, args)
+
+
+def train_rank(args):
+    """The training of one process (a rank's, in a process group)."""
+    from .envs import LeggedEnv
+    from .parallel import entry_device, is_rank0
+
+    device = entry_device(args.device)
     cfg = build_cfg(args)
     env = LeggedEnv(cfg, device=device)
-    print(f"env: {env.num_envs} envs | obs {env.num_obs} | priv {env.num_privileged_obs} "
-          f"| rewards {env.reward_names} | device {device}")
-    if args.wandb:
+    if is_rank0():
+        print(f"env: {env.num_envs} envs | obs {env.num_obs} | priv {env.num_privileged_obs} "
+              f"| rewards {env.reward_names} | device {device}")
+    if args.wandb and is_rank0():
         import wandb
         wandb.init(project="legged_tracking_torch", config=vars(args),
                    name=args.name, dir=args.logdir)
@@ -470,8 +486,12 @@ def parse_args(argv=None):
     p.add_argument("--num_eval_envs", type=int, default=0,
                    help="trailing held-out envs driven by the deterministic "
                         "policy, excluded from PPO updates")
-    p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="spawn this many ranks on this host, the envs sharded over them")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group launched outside (LTPU_* or torchrun)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="collective backend (default nccl on CUDA, gloo on the CPU)")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--freeze_model", action="store_true",
                    help="roll out without updating (reference scripts/train.py:278)")

@@ -6,8 +6,8 @@ container and the batched sampling-based local planner.
     python -m legged_tracking_torch.train_hierarchy --logdir runs/hierarchy
 
 It runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given.  ``--num_devices`` above 1 raises ``NotImplementedError`` (data
-parallelism is not ported).
+is given.  ``--num_devices K`` trains the envs sharded over K ranks spawned
+on this host (``--dist_backend`` as for ``legged_tracking_torch.train``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 
 def build_cfg(args):
@@ -139,16 +138,27 @@ def make_runner(args, env, **runner_kwargs):
 
 
 def main(args):
-    from .envs import LeggedEnv
+    """Train as the flags say, in one process or in ``--num_devices``
+    ranks; returns the Runner's history (None from the parent of spawned
+    ranks)."""
+    from .parallel import run_ranks
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device "
-                           "(--device cpu trains on the CPU)")
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num_devices {args.num_devices}: at least 1")
+    return run_ranks(train_rank, args)
+
+
+def train_rank(args):
+    """The training of one process (a rank's, in a process group)."""
+    from .envs import LeggedEnv
+    from .parallel import entry_device, is_rank0
+
+    device = entry_device(args.device)
     cfg = build_cfg(args)
     env = LeggedEnv(cfg, device=device)
-    print(f"env: {env.num_envs} envs | obs {env.num_obs} | rewards {env.reward_names} "
-          f"| device {device}")
+    if is_rank0():
+        print(f"env: {env.num_envs} envs | obs {env.num_obs} | rewards {env.reward_names} "
+              f"| device {device}")
     return make_runner(args, env).learn(num_learning_iterations=args.iterations)
 
 
@@ -176,7 +186,10 @@ def parse_args(argv=None):
     p.add_argument("--r_stalling", type=float, default=1.0)
     p.add_argument("--r_explore", type=float, default=1.0,
                    help="dense progress shaping toward the local goal")
-    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="spawn this many ranks on this host, the envs sharded over them")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="collective backend (default nccl on CUDA, gloo on the CPU)")
     p.add_argument("--no_curriculum", action="store_true",
                    help="fixed 3.5 m goals, no fix-target curriculum")
     p.add_argument("--resume", type=str, default="",

@@ -6,8 +6,9 @@ of 5 m, a 70-dim obs with a 30-frame history, trained with the CSE policy.
     python -m legged_tracking_torch.train_velocity_tracking --logdir runs/vel
 
 It runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given, and never moves to the CPU by itself.  ``--num_devices`` raises
-``NotImplementedError``: data parallelism is not ported (ROADMAP A13).
+is given, and never moves to the CPU by itself.  ``--num_devices K`` trains
+the envs sharded over K ranks spawned on this host (``--dist_backend`` as
+for ``legged_tracking_torch.train``).
 """
 
 from __future__ import annotations
@@ -175,9 +176,10 @@ def build_cfg(args):
 
 
 def check_supported(args):
-    """Raise NotImplementedError for a flag whose module is not ported."""
-    if (args.num_devices or 1) > 1:
-        raise NotImplementedError("--num_devices needs data parallelism (ROADMAP A13)")
+    """Raise for a flag value the entry cannot train with (every flag's
+    module is ported)."""
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num_devices {args.num_devices}: at least 1")
 
 
 def make_runner(args, env, **runner_kwargs):
@@ -195,7 +197,8 @@ def make_runner(args, env, **runner_kwargs):
     runner = Runner(env, runner_args=RunnerArgs(**{"num_steps_per_env": args.num_steps_per_env,
                                                    "resume": args.resume, **runner_kwargs}),
                     ppo_args=ppo_args, ac_args=ACArgs(max_noise_std=args.max_noise_std),
-                    logdir=args.logdir, log_wandb=args.wandb, seed=args.seed)
+                    logdir=args.logdir, log_wandb=args.wandb, seed=args.seed,
+                    num_devices=args.num_devices)
     if args.reset_action_std is not None:
         with torch.no_grad():
             runner.train_state.params["std"].fill_(args.reset_action_std)
@@ -203,18 +206,27 @@ def make_runner(args, env, **runner_kwargs):
 
 
 def main(args):
-    from .envs.velocity_env import VelocityTrackingEnv
+    """Train as the flags say, in one process or in ``--num_devices``
+    ranks; returns the Runner's history (None from the parent of spawned
+    ranks)."""
+    from .parallel import run_ranks
 
     check_supported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device "
-                           "(--device cpu trains on the CPU)")
+    return run_ranks(train_rank, args)
+
+
+def train_rank(args):
+    """The training of one process (a rank's, in a process group)."""
+    from .envs.velocity_env import VelocityTrackingEnv
+    from .parallel import entry_device, is_rank0
+
+    device = entry_device(args.device)
     cfg = build_cfg(args)
     env = VelocityTrackingEnv(cfg, device=device)
-    print(f"env: {env.num_envs} envs | obs {env.num_obs} | priv {env.num_privileged_obs} "
-          f"| rewards {env.reward_names} | device {device}")
-    if args.wandb:
+    if is_rank0():
+        print(f"env: {env.num_envs} envs | obs {env.num_obs} | priv {env.num_privileged_obs} "
+              f"| rewards {env.reward_names} | device {device}")
+    if args.wandb and is_rank0():
         import wandb
         wandb.init(project="legged_tracking_torch", config=vars(args), dir=args.logdir)
     runner = make_runner(args, env)
@@ -237,7 +249,10 @@ def parse_args(argv=None):
     p.add_argument("--num_steps_per_env", type=int, default=24)
     p.add_argument("--num_history", type=int, default=30)
     p.add_argument("--num_envs", type=int, default=4000)
-    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="spawn this many ranks on this host, the envs sharded over them")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="collective backend (default nccl on CUDA, gloo on the CPU)")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--terrain", default="trimesh", choices=["plane", "trimesh"])
     p.add_argument("--terrain_rows", type=int, default=30)

@@ -556,3 +556,34 @@ def test_eval_reached_on_card(cuda_device, tmp_path):
     assert scan.scan_heights.launches == before + 1 + 20
     assert rec["episodes"] > 0            # 3-step episodes end within 20 steps
     assert 0.0 <= rec["reached"] <= 1.0 and np.isfinite(rec["mean_ep_len"])
+
+
+@pytest.mark.cuda
+def test_scan_kernel_bitwise_on_a_shard(cuda_device):
+    """Kernel B1 == its plain version, bitwise, on one rank's shard of the
+    bench: rank 1 of 2 of 4096 envs holds 2048, whose ``env_tile`` rows are
+    the second half of the whole env's."""
+    import chip_smoke
+    from legged_tracking_torch.parallel import Shard
+
+    cfg = tunnel_cfg(4096, 32)
+    whole = build_terrain(cfg, 4096, seed=1, device=cuda_device)
+    env = LeggedEnv(cfg, terrain=whole, device=cuda_device, shard=Shard(1, 2, 4096))
+    assert torch.equal(env.terrain.env_tile, whole.env_tile[2048:])
+    args = chip_smoke.scan_args(env.terrain, env.tile_table, cfg, cuda_device)
+    assert args[2].shape[0] == 2048
+    out = scan.scan_heights(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, scan.scan_heights_reference(*args))
+
+
+@pytest.mark.cuda
+def test_data_parallel_on_card_matches_one_rank(cuda_device):
+    """chip_smoke.py's dp-reference phase: the 8-env configuration of
+    tests/test_distributed.py run by two gloo ranks that share card 0 and by
+    one rank, within 1e-5 on the rollout and atol 2e-4 / rtol 2e-3 on the
+    parameters after two Runner.learn iterations (the phase raises past
+    them), the two ranks' parameters equal."""
+    import chip_smoke
+
+    chip_smoke.phase_dp_reference(torch.device("cuda", 0), "card test")

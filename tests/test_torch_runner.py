@@ -264,10 +264,13 @@ def test_freeze_model_rolls_out_without_updating():
     assert np.isfinite(r.history[-1]["episode_length_mean"])
 
 
-@pytest.mark.parametrize("kwargs", [{"num_devices": 2}, {"distributed": True}])
-def test_runner_refuses_what_is_not_ported(kwargs):
-    # the training video is ported (tests/test_torch_eval.py writes one)
-    with pytest.raises(NotImplementedError, match="A13"):
+@pytest.mark.parametrize("kwargs,need", [({"num_devices": 2}, "of world size 2"),
+                                         ({"distributed": True}, "")])
+def test_runner_refuses_what_is_not_ported(kwargs, need):
+    """Data parallelism is ported (A13, tests/test_torch_parallel.py runs it
+    over two ranks): without a process group to run in, num_devices and
+    distributed raise, naming the group they need."""
+    with pytest.raises(RuntimeError, match="needs a process group " + need):
         Runner(plane_env(), **kwargs)
 
 
@@ -296,11 +299,11 @@ def test_train_entry_on_cpu(tmp_path):
         assert pickle.load(f)["iteration"] == 2
 
 
-# the modules of all cases but A13 are ported: the CNN/GRU policy, the goal
-# recipe's TrajectoryTrackingRewards, the planner, random_target, the DR
-# profiles and the training video (A12)
+# the modules of all cases are ported: the CNN/GRU policy, the goal recipe's
+# TrajectoryTrackingRewards, the planner, random_target, the DR profiles, the
+# training video (A12) and data parallelism (A13)
 PORTED = {"actor_critic_cnn", "TrajectoryTrackingRewards", "planner", "random_target",
-          "domain_randomization_profiles", "A12"}
+          "domain_randomization_profiles", "A12", "A13"}
 
 
 @pytest.mark.parametrize("flags,module", [
@@ -324,10 +327,8 @@ def test_train_entry_refuses_what_is_not_ported(flags, module):
 
 
 def test_velocity_entry_refuses_what_is_not_ported():
-    """The velocity entry's --num_devices needs data parallelism (A13) and
-    raises NotImplementedError naming it, before any env is built."""
+    """The velocity entry's --num_devices is ported (A13): the flag passes
+    the check, as the entry's defaults do."""
     from legged_tracking_torch import train_velocity_tracking as t_tv
-    args = t_tv.parse_args(["--device", "cpu", "--num_devices", "4"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_tv.main(args)
+    t_tv.check_supported(t_tv.parse_args(["--device", "cpu", "--num_devices", "4"]))
     t_tv.check_supported(t_tv.parse_args(["--device", "cpu"]))

@@ -510,11 +510,13 @@ def test_velocity_step_fn_matches_four_steps(envs):
 def test_velocity_build_cfg_matches_scripts(flags):
     """train_velocity_tracking.build_cfg gives the configuration of
     scripts/train_velocity_tracking.py for the same flags, field by field;
-    the flags the two parsers share have the same defaults."""
+    the flags the two parsers share have the same defaults.  The port's own
+    are ``--device`` (for ``--cpu``) and ``--dist_backend`` (its collective
+    backend, where JAX has XLA's)."""
     jargs, targs = J_TV.parse_args(flags), t_tv.parse_args(flags)
     assert cfg_tree(t_tv.build_cfg(targs)) == cfg_tree(J_TV.build_cfg(jargs))
     shared = set(vars(jargs)) - {"cpu"}
-    assert shared == set(vars(targs)) - {"device"}
+    assert shared == set(vars(targs)) - {"device", "dist_backend"}
     assert {k: getattr(targs, k) for k in shared} == {k: getattr(jargs, k) for k in shared}
 
 

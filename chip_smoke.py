@@ -76,14 +76,35 @@ Phases, each printing one JSON line:
    held to the count the code gives (one a step, one at each observe, one
    at a reset that stores the planner's scan; none on the velocity run),
    and B1 is held bitwise at each tunnel env's width first.  No rendering.
-17. dp-reference: data parallelism against one rank: the 8-env
+17. deploy: the deploy stack with its policy on the card.  The port's C++
+   bridge (``deploy/bridge``) is built with cmake and started as a
+   subprocess on a bus of the phase's own (``LCM_DEFAULT_URL``), and each
+   deploy entry's wiring runs 300 control steps at the reference's 20 ms
+   against it: ``deploy_policy`` on the velocity run (RC profile, 70-dim
+   obs x 30 history), ``deploy_traj_policy`` on the bench run (front_goal,
+   261 x 15).  The runner does not wait for the RC's R2 switch, which the
+   loopback never presses.  Checks telemetry, obs widths, finite obs and
+   actions, the card's actions against the CPU runtime's on the logged
+   histories, the bridge's joints settling on the last published targets,
+   and B1 launched 0 times (the agent stubs the height scan); prints the
+   policy's latency a step (CUDA events around the forward; the host clock
+   from the obs array to the action array) and the loop period, median
+   and p99.
+18. actuator-net: the actuator-net trainer fitted on the card to a log of
+   the bench path: the bench run's policy drives the bench configuration
+   at 4096 envs for 100 steps (B1 101 times), the joint log becomes
+   4,816,896 samples, the card's fit is held to the CPU's for one epoch
+   over 65,536 samples, then the fit at the script's defaults runs 2
+   epochs (1,175 minibatches each; seconds an epoch, microseconds a
+   minibatch, peak memory), and the written npz loads back and steps.
+19. dp-reference: data parallelism against one rank: the 8-env
    configuration of ``tests/test_distributed.py``, 3 env steps and 2
    ``Runner.learn`` iterations (4 steps, 2 x 2 minibatches), run by two
    ranks that share the card over gloo (named; NCCL refuses two ranks on
    one card, and the machine has one) and by one rank; rollout base
    positions and obs within 1e-5, parameters within atol 2e-4 / rtol 2e-3
    (the JAX package's bars), the ranks' parameters equal.
-18. train-dp: the main path over two such ranks: the bench configuration at
+20. train-dp: the main path over two such ranks: the bench configuration at
    4096 global envs, 2048 a rank, B1 held bitwise at each rank's width and
    rows, then ``Runner.learn`` for 4 iterations, each rank held as the
    train phase is (B1 97 launches on each, rank 0 the only writer of the
@@ -94,8 +115,8 @@ Phases, each printing one JSON line:
    this process as JSON.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
-path, eval and data-parallel paths included, and none on the velocity
-paths), each as one JSON line, the card's
+path, eval, actuator-log and data-parallel paths included, and none on the
+velocity and deploy paths), each as one JSON line, the card's
 name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": ...}``.  The
 script exits non-zero, without that last line, when CUDA is missing, when
@@ -916,7 +937,7 @@ def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir
     alg.update = evented("update", alg.update)
     if planning:
         env._plan_local_targets = evented("planner", env._plan_local_targets)
-    history = runner.learn(iters, verbose=False)
+    history = runner.learn(iters)
     if planning:
         del env._plan_local_targets
     total = scan.scan_heights.launches
@@ -1144,7 +1165,7 @@ def dp_reference_run(outdir: str, device: str):
                     runner_args=RunnerArgs(num_steps_per_env=4, log_freq=1),
                     ppo_args=PPOArgs(num_mini_batches=2, num_learning_epochs=2), seed=7,
                     distributed=group)
-    runner.learn(2, verbose=False)
+    runner.learn(2)
     params = {k: v.detach().cpu() for k, v in runner.train_state.params.items()}
     torch.save({"steps": steps, "params": params}, os.path.join(outdir, f"rank{rank}.pt"))
 
@@ -1465,6 +1486,264 @@ def phase_eval(dev, card_line: str, logdirs: dict) -> tuple[dict, dict]:
     return by_path, off_path
 
 
+# the deploy phase's bus (LCM_DEFAULT_URL), apart from the reference's
+# default one; its runs of 300 control steps at the reference's dt
+DEPLOY_URL = "udpm://239.255.76.67:7760?ttl=0"
+DEPLOY_STEPS = 300
+# the loopback robot's joint limits (deploy/bridge/robot_link.hpp, Safety:
+# hip, thigh, calf), which clamp the published targets
+BRIDGE_Q_LIMITS = ((-0.863, 0.863), (-0.686, 4.501), (-2.818, -0.888))
+# the policy runtime on the card against the CPU, the same histories (a
+# float32 product over 2,100 or 3,915 inputs, cuBLAS against the CPU's
+# GEMM): on an H100 1.9e-6 to 3.1e-6 over three runs; the limit is 6 to
+# 10 times that
+DEPLOY_RUNTIME_TOL = 2e-5
+# the actuator-net fit on the card against the CPU, one epoch of 15
+# minibatches from the same weights: on an H100 3.0e-8 on the weights; the
+# limit is 13 times that
+ACTUATOR_FIT_TOL = 4e-7
+
+
+def deploy_run(dev, entry: str, logdir: str, profile: str | None, steps: int) -> dict:
+    """One deploy entry's wiring (``build_runner``) against the loopback
+    bridge for ``steps`` control steps with the policy on the card, its
+    runner given no estimator (``runner.se = None``): the loopback bridge
+    publishes the RC's switches zeroed at 500 Hz, so
+    ``DeploymentRunner.calibrate`` would wait for R2 forever through
+    ``runner.se`` (without it the runner also skips its roll/pitch watch;
+    the loopback IMU is level).  Each policy call is
+    timed (CUDA events around the forward; the host clock from the obs
+    array to the action array, both copies included) and its obs history
+    kept; the card's actions are held to the CPU runtime's on those
+    histories; the bridge's joints, after the run, to the last published
+    targets.  Then the same forward is timed alone, with the estimator's
+    receive thread stopped: in the loop that thread decodes 1,500 messages
+    a second in Python beside the policy's dispatch."""
+    import numpy as np
+    import torch
+
+    from legged_tracking_torch import deploy_policy, deploy_traj_policy
+    from legged_tracking_torch.deploy import go1_bridge
+    from legged_tracking_torch.deploy.lcm_lite import LCMLite
+    from legged_tracking_torch.deploy.policy_runtime import PolicyRuntime
+    from legged_tracking_torch.deploy.state_estimator import StateEstimator
+    from legged_tracking_torch.terrain import scan
+
+    # the calibration's 100 steps, the run, and the 1.5 s the joints are
+    # given to settle, in ticks of 2 ms, with room
+    proc = go1_bridge.start(int((100 + steps) * 0.02 / 0.002 * 1.5) + 2000)
+    se = StateEstimator(LCMLite())
+    se.spin()
+    try:
+        t0 = time.perf_counter()
+        while not se.received_first_legdata and time.perf_counter() - t0 < 10.0:
+            time.sleep(0.02)
+        if not se.received_first_legdata:
+            raise AssertionError(f"{entry}: no leg telemetry from the bridge in 10 s")
+        if entry == "deploy_policy":
+            runner = deploy_policy.build_runner(logdir, se, device=dev)
+        else:
+            runner = deploy_traj_policy.build_runner(logdir, se, profile, device=dev)
+        runner.se = None
+        rt, agent = runner.policy, runner.agents["hardware"]
+        hist, host_ms, spans = [], [], []
+        forward = rt.act_student
+
+        def evented(x):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = forward(x)
+            b.record()
+            spans.append((a, b))
+            return y
+        rt.act_student = evented
+
+        def policy(obs_history):
+            t = time.perf_counter()
+            y = rt(obs_history)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            hist.append(obs_history.copy())
+            return y
+        runner.policy = policy
+        torch.cuda.synchronize()
+        scan.scan_heights.launches = 0
+        runner.run(max_steps=steps)
+        launches = scan.scan_heights.launches
+        target = agent.joint_pos_target.copy()
+        time.sleep(1.5)                  # the stub's PD settles in about 0.26 s a time constant
+        q = se.get_dof_pos().copy()
+        se.close()
+        # the same forward outside the loop, with no LCM receive thread
+        # beside it: device ms (cuda_ms) and the host clock of the numpy call
+        del rt.act_student
+        x1 = hist[-1]
+        x1_dev = torch.from_numpy(x1).to(dev)
+        alone_ms = cuda_ms(lambda: rt.act_student(x1_dev), iters=40)
+        alone_host = []
+        for _ in range(200):
+            t = time.perf_counter()
+            rt(x1)
+            alone_host.append((time.perf_counter() - t) * 1e3)
+    finally:
+        se.close()
+        proc.terminate()
+        proc.wait(timeout=10)
+    torch.cuda.synchronize()
+    obs = np.concatenate([r["obs"] for r in runner.log])
+    act = np.concatenate([r["action"] for r in runner.log])
+    if not (np.isfinite(obs).all() and np.isfinite(act).all()):
+        raise AssertionError(f"{entry}: non-finite obs or actions")
+    histories = np.concatenate(hist)
+    cpu = PolicyRuntime(os.path.join(logdir, "policy.npz"), device="cpu")
+    err = float(np.abs(act - cpu(histories)).max())
+    lo = np.array([BRIDGE_Q_LIMITS[j % 3][0] for j in range(12)])
+    hi = np.array([BRIDGE_Q_LIMITS[j % 3][1] for j in range(12)])
+    track = float(np.abs(q - np.clip(target, lo, hi)).max())
+    dev_ms = [a.elapsed_time(b) for a, b in spans]
+    period_ms = np.diff([r["t"] for r in runner.log]) * 1e3
+    pct = lambda v, p: float(np.percentile(v, p))
+    return {"path": entry, "profile": profile or "rc", "steps": steps,
+            "obs_width": obs.shape[1], "history_width": histories.shape[1],
+            "dt_ms": agent.dt * 1e3, "scan_heights_launches": launches,
+            "card_vs_cpu_max_abs_err": err, "joint_tracking_err_rad": track,
+            "policy_device_ms": {"median": pct(dev_ms, 50), "p99": pct(dev_ms, 99)},
+            "policy_host_ms": {"median": pct(host_ms, 50), "p99": pct(host_ms, 99)},
+            "policy_alone_ms": {"device": alone_ms[0], "call": alone_ms[1],
+                                "host_median": pct(alone_host, 50),
+                                "host_p99": pct(alone_host, 99)},
+            "loop_period_ms": {"median": pct(period_ms, 50), "p99": pct(period_ms, 99),
+                               "max": float(period_ms.max())}}
+
+
+def phase_deploy(dev, card_line: str, logdirs: dict) -> dict:
+    """The deploy stack on the card: the port's C++ bridge built from its
+    sources and started as a subprocess on a bus of the phase's own, then
+    ``deploy_policy``'s wiring on the velocity run (RC profile, 70-dim obs x
+    30) and ``deploy_traj_policy``'s on the bench run (front_goal, 261 x
+    15), 300 control steps each.  Checks: telemetry, obs widths, finite obs
+    and actions, the card's actions against the CPU runtime's within
+    DEPLOY_RUNTIME_TOL, the bridge's joints within 0.02 rad of the last
+    published targets, and B1 launched 0 times (the agent stubs the
+    height scan).  Returns B1's launches by path."""
+    from legged_tracking_torch.deploy import go1_bridge
+
+    t0 = time.perf_counter()
+    shutil.rmtree(go1_bridge.BUILD_DIR, ignore_errors=True)
+    go1_bridge.build()
+    build_s = time.perf_counter() - t0
+    saved = os.environ.get("LCM_DEFAULT_URL")
+    os.environ["LCM_DEFAULT_URL"] = DEPLOY_URL
+    try:
+        rows = [deploy_run(dev, "deploy_policy", logdirs["velocity"], None, DEPLOY_STEPS),
+                deploy_run(dev, "deploy_traj_policy", logdirs["bench"], "front_goal",
+                           DEPLOY_STEPS)]
+    finally:
+        if saved is None:
+            del os.environ["LCM_DEFAULT_URL"]
+        else:
+            os.environ["LCM_DEFAULT_URL"] = saved
+    bad = [(r["path"], k) for r in rows for k, ok in (
+        ("obs_width", r["obs_width"] == (70 if r["path"] == "deploy_policy" else 261)),
+        ("card_vs_cpu", r["card_vs_cpu_max_abs_err"] <= DEPLOY_RUNTIME_TOL),
+        ("joint_tracking", r["joint_tracking_err_rad"] <= 0.02),
+        ("scan_heights_launches", r["scan_heights_launches"] == 0)) if not ok]
+    emit({"phase": "deploy", "ok": not bad, "card": card_line, "bridge_build_s": build_s,
+          "bridge_build": "cmake, make (deploy/bridge/CMakeLists.txt, Release)",
+          "bus": DEPLOY_URL, "rc_wait": "off: the runner has no estimator (the loopback "
+          "never presses R2)", "tolerance": DEPLOY_RUNTIME_TOL, "runs": rows})
+    if bad:
+        raise AssertionError(f"deploy: failed checks {bad}: {rows}")
+    return {r["path"]: {"scan_heights": r["scan_heights_launches"]} for r in rows}
+
+
+def phase_actuator_net(dev, card_line: str, logdir: str) -> dict:
+    """The actuator-net trainer on the card, fitted to a log of the bench
+    path: the bench run's policy drives the bench configuration at 4096
+    envs for 100 control steps (B1 once at observe and once a step), each
+    step's PD target, joint positions and velocities and torques recorded;
+    ``build_dataset`` of each env's log in env order (4096 x 98 x 12
+    samples); the card's fit against the CPU's, one epoch over the first
+    65,536 samples from the same initial weights, within ACTUATOR_FIT_TOL;
+    then the fit at the script's defaults (batch 4096, lr 8e-4, seed 0)
+    cut to 2 epochs, its losses finite and falling, written with
+    ``save_npz``, loaded back into ``ActuatorNet`` and stepped once in the
+    bench env.  Returns B1's launches."""
+    import numpy as np
+    import torch
+
+    from legged_tracking_torch import eval as ev
+    from legged_tracking_torch import train_actuator_net as tam
+    from legged_tracking_torch.actuation.actuators import ActuatorNet
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.terrain import scan
+
+    steps, epochs = 100, 2
+    env = LeggedEnv(bench_cfg(NUM_ENVS), device=dev)
+    _, policy = ev.load_policy(env, logdir)
+    torch.cuda.synchronize()
+    scan.scan_heights.launches = 0
+    t0 = time.perf_counter()
+    log = tam.record_log(env, policy, steps)
+    torch.cuda.synchronize()
+    log_s = time.perf_counter() - t0
+    launches = scan.scan_heights.launches
+    if launches != steps + 1:
+        raise AssertionError(f"actuator_net: scan_heights launched {launches} times in the "
+                             f"log's rollout, expected {steps + 1}")
+    if not all(bool(torch.isfinite(v).all()) for v in log.values()):
+        raise AssertionError("actuator_net: non-finite values in the joint log")
+    t0 = time.perf_counter()
+    X, Y = tam.build_dataset({k: v.cpu().numpy() for k, v in log.items()})
+    dataset_s = time.perf_counter() - t0
+    if X.shape != (NUM_ENVS * (steps - 2) * 12, 6):
+        raise AssertionError(f"actuator_net: dataset {X.shape}")
+
+    w_init = tam.init_weights(0)
+    sub = 65536
+    fits = {d: tam.fit(X[:sub], Y[:sub], epochs=1, device=d, weights=w_init)
+            for d in (dev, "cpu")}
+    fit_err = max(float(np.abs(fits[dev].weights[k] - fits["cpu"].weights[k]).max())
+                  for k in w_init)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = tam.fit(X, Y, epochs=epochs, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (all(np.isfinite(res.losses)) and res.losses[-1] < res.losses[0]):
+        raise AssertionError(f"actuator_net: losses {res.losses}")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "actuator_net.npz")
+        tam.save_npz(path, res.weights)
+        arrays = dict(np.load(path))
+    net = ActuatorNet.from_arrays(arrays, device=dev)
+    if not all(np.array_equal(arrays[k], res.weights[k]) for k in res.weights):
+        raise AssertionError("actuator_net: the written npz does not hold the fitted weights")
+    with torch.no_grad():
+        env.actuator_net.load_state_dict(net.state_dict())
+        state = env.reset_fn(True)
+        obs = env.observe(state)
+        state, out = env.step_fn(state, policy(obs["obs"], obs["obs_history"].float()))
+    if not all(bool(torch.isfinite(x).all()) for x in (out.obs, out.rew, state.torques)):
+        raise AssertionError("actuator_net: a step with the fitted net is not finite")
+    ok = fit_err <= ACTUATOR_FIT_TOL
+    emit({"phase": "actuator_net", "ok": ok, "card": card_line, "envs": NUM_ENVS,
+          "log_steps": steps, "log_s": log_s, "log_env_steps_per_s": NUM_ENVS * steps / log_s,
+          "scan_heights_launches": launches, "samples": int(X.shape[0]),
+          "input_mb": X.nbytes / 1e6, "dataset_s": dataset_s,
+          "epochs": epochs, "depth_cut": {"epochs": [100, epochs]}, "batch": 4096,
+          "minibatches_per_epoch": res.minibatches, "losses": res.losses,
+          "epoch_s": res.epoch_s,
+          "minibatch_us": [s / res.minibatches * 1e6 for s in res.epoch_s],
+          "peak_mem_gib": peak, "card_vs_cpu_max_abs_err": fit_err,
+          "card_vs_cpu_samples": sub, "tolerance": ACTUATOR_FIT_TOL,
+          "step_with_fitted_net": {"rew_mean": float(out.rew.mean()),
+                                   "torque_abs_max": float(state.torques.abs().max())}})
+    if not ok:
+        raise AssertionError(f"actuator_net: card vs CPU fit {fit_err} > {ACTUATOR_FIT_TOL}")
+    return {"scan_heights": launches}
+
+
 def profile(fn, label: str, out_dir: str, card_line: str):
     """``fn`` once more under torch.profiler: device busy time by kernel and
     the device's idle share of its wall time."""
@@ -1553,6 +1832,10 @@ def main(argv=None) -> int:
         eval_paths, eval_off = timed("eval", phase_eval, dev, card_line, logdirs)
         by_path.update(eval_paths)
         off_path.update(eval_off)
+        # the deploy stack stubs the height scan: B1 is not one of its kernels
+        off_path.update(timed("deploy", phase_deploy, dev, card_line, logdirs))
+        by_path["actuator_log"] = timed("actuator_net", phase_actuator_net, dev, card_line,
+                                        logdirs["bench"])
     finally:
         shutil.rmtree(runs, ignore_errors=True)
     # data parallelism: two ranks against one, then the main path over two

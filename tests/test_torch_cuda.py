@@ -1,7 +1,10 @@
 """The port on the card: kernel B1 against its plain version (at the bench
 grid, and across the env and point counts where its blocking and staging
 change), and an env step on the card (kernels) against the same step on
-the CPU (plain versions).  Every test here needs an NVIDIA card and skips without one.
+the CPU (plain versions), the deploy runtime and the actuator-net fit on
+the card against the CPU.  Every test here needs an NVIDIA card and skips
+without one, but for the last, which holds that the deploy runtime refuses
+``cuda`` where there is no card.
 
 This file imports neither JAX nor the JAX package, so that it also runs
 where only PyTorch is installed:
@@ -587,3 +590,68 @@ def test_data_parallel_on_card_matches_one_rank(cuda_device):
     import chip_smoke
 
     chip_smoke.phase_dp_reference(torch.device("cuda", 0), "card test")
+
+
+def cse_export(path, n_obs, n_hist, seed=0):
+    """A random CSE policy's ``policy.npz`` (the velocity run's shapes with
+    n_obs 70, n_hist 2100)."""
+    from legged_tracking_torch.io.checkpoint import export_policy_npz
+    from legged_tracking_torch.learn.actor_critic import ActorCriticCSE
+
+    torch.manual_seed(seed)
+    export_policy_npz(path, ActorCriticCSE(n_obs, 2, n_hist, 12).state_dict())
+    return path
+
+
+@pytest.mark.cuda
+def test_policy_runtime_on_card_matches_cpu(cuda_device, tmp_path):
+    """The deploy runtime on the card against the same export on the CPU,
+    within chip_smoke.py's DEPLOY_RUNTIME_TOL: 300 histories at once and
+    one at a time, as the control loop calls it; numpy in and out."""
+    import chip_smoke
+    from legged_tracking_torch.deploy.policy_runtime import PolicyRuntime
+
+    path = cse_export(str(tmp_path / "policy.npz"), 70, 2100)
+    card, cpu = PolicyRuntime(path, device=cuda_device), PolicyRuntime(path, device="cpu")
+    assert next(card.parameters()).is_cuda
+    x = np.random.RandomState(0).randn(300, 2100).astype(np.float32)
+    y = card(x)
+    assert isinstance(y, np.ndarray) and y.shape == (300, 12)
+    ref = cpu(x)
+    assert np.abs(y - ref).max() <= chip_smoke.DEPLOY_RUNTIME_TOL
+    rows = np.concatenate([card(x[i:i + 1]) for i in range(0, 300, 30)])
+    assert np.abs(rows - ref[::30]).max() <= chip_smoke.DEPLOY_RUNTIME_TOL
+
+
+@pytest.mark.cuda
+def test_actuator_fit_on_card_matches_cpu(cuda_device):
+    """One epoch of the actuator-net fit (16 minibatches of 4096) on the card
+    and on the CPU from the same initial weights, within chip_smoke.py's
+    ACTUATOR_FIT_TOL; the card's losses finite."""
+    import chip_smoke
+    from legged_tracking_torch import train_actuator_net as tam
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(17 * 4096, 6).astype(np.float32)
+    Y = (np.tanh(X[:, :1] * 3.0 - X[:, 3:4]) * 20.0).astype(np.float32)
+    w = tam.init_weights(0)
+    card = tam.fit(X, Y, epochs=1, device=cuda_device, weights=w)
+    cpu = tam.fit(X, Y, epochs=1, device="cpu", weights=w)
+    assert card.minibatches == 16 and np.isfinite(card.losses).all()
+    for k in w:
+        assert np.abs(card.weights[k] - cpu.weights[k]).max() <= chip_smoke.ACTUATOR_FIT_TOL, k
+
+
+def test_policy_runtime_on_cuda_without_a_card_raises(tmp_path):
+    """Where torch sees no card, ``PolicyRuntime(device="cuda")`` raises; it
+    does not run on the CPU.  (The inverse of this file's other tests: it
+    runs where there is no card, so it carries no ``cuda`` marker.)"""
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA card")
+    from legged_tracking_torch.deploy.policy_runtime import PolicyRuntime
+
+    path = cse_export(str(tmp_path / "policy.npz"), 70, 2100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PolicyRuntime(path, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PolicyRuntime(path)

@@ -113,9 +113,25 @@ Phases, each printing one JSON line:
    rollout/update split, the all-reduce's share of its update (CUDA events
    around each collective) and its peak memory, which the ranks report to
    this process as JSON.
+21. window-reference: windowed histories (``PPOArgs.windowed_history``)
+   against stored ones at full width, on the bench (4096 envs, 261 x 15)
+   and on the velocity defaults (4000 envs, 70 x 30): one rollout storing
+   its histories, every one of its T x N rows rebuilt by
+   ``window_histories`` from the frame stream and held to the stored row
+   at atol 0, then one ``update`` each way from one TrainState and
+   permutation: parameters, Adam moments, learning rate and losses
+   bitwise, or within the update-reference limits with the errors printed.
+22. train-window: the main path with windowed histories, the bench at 4096
+   envs through ``Runner.learn`` with ``PPOArgs(windowed_history=True)``
+   for 4 iterations, held as the train phase is (B1 97 launches), its
+   train env-steps/s and peak memory printed beside the train phase's of
+   this call; then the bench at 16,384 envs (16 envs a tile), B1 held
+   bitwise at that width, and one ``train_iteration`` with stored and one
+   with windowed histories after an untimed one: the peak memory and
+   seconds of each.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
-path, eval, actuator-log and data-parallel paths included, and none on the
+path, eval, actuator-log, data-parallel and windowed paths included, and none on the
 velocity and deploy paths), each as one JSON line, the card's
 name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
 "device": ...}``.  The
@@ -1329,6 +1345,172 @@ def phase_train_dp(dev, card_line: str, train_row: dict):
             for r in ranks}
 
 
+def window_reference(dev, make_env, tol: dict) -> dict:
+    """Windowed histories against stored ones at an env's full width: one
+    rollout of ``make_env(dev)`` storing its histories, every one of its
+    T x N rows rebuilt from the frame stream (``window_histories``) and
+    held to the stored row at atol 0, then one ``update`` each way from one
+    TrainState, one permutation and the same returns and advantages: the
+    parameters, Adam moments, learning rate and losses bitwise, or else
+    within ``tol`` (the update-reference limits), the errors printed."""
+    import torch
+
+    from legged_tracking_torch.learn.ppo import PPO, PPOArgs, copy_state, window_histories
+
+    t0 = time.perf_counter()
+    env = make_env(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    stored = PPO(env, seed=0)
+    windowed = PPO(env, args=PPOArgs(windowed_history=True), ac=stored.ac, seed=0)
+    state = env.reset_fn(True)
+    obs = env.observe(state)
+    h0 = (obs["obs_history"], state.obs_history)
+    _, last, traj, _, _ = stored.rollout(state, obs)
+    T, N = traj.rewards.shape
+    no = env.num_obs
+    K = env.num_obs_history // no
+    i = torch.arange(T * N, device=dev)
+    rows = window_histories(*h0, traj.obs, i // N, i % N, K, no)
+    rows_apart = int((rows != traj.obs_history.reshape(T * N, -1)).any(dim=1).sum())
+    del rows
+    if rows_apart:
+        raise AssertionError(f"window_reference: {rows_apart} of {T * N} rebuilt history rows "
+                             f"differ from the stored ones")
+
+    returns, adv = stored.compute_gae(traj, stored._last_values(last, None))
+    perm = torch.randperm(T * N, generator=torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    live = stored.init()
+    start = copy_state(live)
+    out = {}
+    for name, alg, tr, h in (("stored", stored, traj, None),
+                             ("windowed", windowed, traj._replace(
+                                 obs_history=traj.obs_history[:, :, :0]), h0)):
+        with torch.no_grad():
+            for k, v in live.params.items():
+                v.copy_(start.params[k])
+        ts = copy_state(start)._replace(params=live.params)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ts, m = alg.update(ts, tr, returns, adv, perm=perm, h0=h)
+        torch.cuda.synchronize()
+        out[name] = (copy_state(ts), m, time.perf_counter() - t)
+    (a, ma, sa), (b, mb, sb) = out["windowed"], out["stored"]
+    pairs = [a.params, b.params], [a.opt_state.mu, b.opt_state.mu], \
+        [a.opt_state.nu, b.opt_state.nu], [a.adapt_opt_state.mu, b.adapt_opt_state.mu], \
+        [a.adapt_opt_state.nu, b.adapt_opt_state.nu]
+    losses = ("value_loss", "surrogate_loss", "adaptation_loss", "adaptation_test_loss",
+              "kl_mean")
+    bitwise = (all(torch.equal(x[k], y[k]) for x, y in pairs for k in y)
+               and torch.equal(a.learning_rate, b.learning_rate)
+               and all(torch.equal(ma[k], mb[k]) for k in losses))
+    errs = {}
+    if not bitwise:
+        moved = sum(float((v - start.params[k]).square().sum()) for k, v in b.params.items())
+        apart = sum(float((a.params[k] - v).square().sum()) for k, v in b.params.items())
+        rel = lambda x, y: max(float((x[k] - y[k]).abs().max() / y[k].abs().max().clamp(
+            min=1e-30)) for k in y)
+        errs = {"params_rms_rel": (apart / moved) ** 0.5,
+                "opt_state": rel(a.opt_state.mu, b.opt_state.mu),
+                "adapt_opt_state": rel(a.adapt_opt_state.mu, b.adapt_opt_state.mu),
+                "learning_rate": abs(float(a.learning_rate) / float(b.learning_rate) - 1),
+                "losses": max(abs(float(ma[k]) - float(mb[k])) / max(abs(float(mb[k])), 1.0)
+                              for k in losses)}
+        bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+        if bad:
+            raise AssertionError(f"window_reference: windowed vs stored update beyond the "
+                                 f"update-reference limits: {bad}")
+    return {"envs": N, "steps": T, "num_obs": no, "frames": K, "env_build_s": build_s,
+            "rows": T * N, "rows_apart": rows_apart, "update_bitwise": bitwise,
+            "update_errors": errs, "update_s": {"stored": sb, "windowed": sa},
+            "stored_history_mb": traj.obs_history.numel() * 2 / 1e6,
+            "frame_stream_mb": N * (2 * K - 2 + T) * no * 2 / 1e6,
+            "losses": {k: float(mb[k]) for k in losses}}
+
+
+def phase_window_reference(dev, card_line: str):
+    """Windowed histories against stored ones at full width, on the bench
+    (4096 envs, 261 x 15) and on the velocity defaults (4000 envs, 70 x
+    30), each as :func:`window_reference` holds it."""
+    import torch
+
+    from legged_tracking_torch import train_velocity_tracking
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+
+    # the update-reference limits (phase_update_reference), where the two
+    # updates are not bitwise
+    tol = {"params_rms_rel": 1e-2, "opt_state": 3e-2, "adapt_opt_state": 4e-2,
+           "learning_rate": 0.0, "losses": 5e-4}
+    rows = {"bench": window_reference(dev, lambda d: LeggedEnv(bench_cfg(NUM_ENVS), device=d),
+                                      tol)}
+    torch.cuda.empty_cache()
+    cfg = train_velocity_tracking.build_cfg(velocity_args())
+    rows["velocity"] = window_reference(dev, lambda d: VelocityTrackingEnv(cfg, device=d), tol)
+    emit({"phase": "window_reference", "ok": True, "card": card_line, "tolerance": tol,
+          **rows})
+
+
+def phase_train_window(dev, card_line: str, train_row: dict) -> dict:
+    """The main path with windowed histories: the bench configuration at
+    4096 envs trained by Runner.learn with ``PPOArgs(windowed_history=True)``
+    for 4 iterations, held as the train phase is, its rate and peak memory
+    printed beside the train phase's of this call.  Then the bench
+    configuration at 16,384 envs (16 envs a tile): B1 held bitwise at that
+    width, and one train_iteration with stored and one with windowed
+    histories (after an untimed one), each with its peak memory and
+    seconds.  Returns B1's launches on the 4096-env path."""
+    import torch
+
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.learn.ppo import PPO, PPOArgs
+    from legged_tracking_torch.learn.runner import Runner, RunnerArgs
+
+    env = LeggedEnv(bench_cfg(NUM_ENVS), device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_window_") as logdir:
+        runner, row = run_training("train_window", env, lambda logdir: Runner(
+            env, runner_args=RunnerArgs(log_freq=1, save_interval=2),
+            ppo_args=PPOArgs(windowed_history=True), logdir=logdir, seed=0),
+            iters=4, at_setup=1, logdir=logdir)
+    if not runner.alg._window_history:
+        raise AssertionError("train_window: the Runner's PPO stores its histories")
+    del runner, env
+    torch.cuda.empty_cache()
+    row["train_phase"] = {k: train_row[k] for k in (
+        "train_env_steps_per_s", "peak_mem_gib", "iteration_s", "rollout_s", "update_s",
+        "iteration_s_all")}
+
+    big = LeggedEnv(bench_cfg(4 * NUM_ENVS), device=dev)
+    scan_row = scan_check(big, dev)
+    modes = {}
+    for name, windowed in (("first", False), ("stored", False), ("windowed", True)):
+        alg = PPO(big, args=PPOArgs(windowed_history=windowed), seed=0)
+        ts = alg.init()
+        state = big.reset_fn(True)
+        obs = big.observe(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = alg.train_iteration(ts, state, obs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        if not all(bool(torch.isfinite(v.float()).all()) for k, v in out[3].items()
+                    if k != "video"):
+            raise AssertionError(f"train_window: non-finite metrics at {big.num_envs} envs, "
+                                 f"{name}")
+        modes[name] = {"iteration_s": secs,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "before_gib": base / 2 ** 30}
+        del alg, ts, state, obs, out
+    row.update({"card": card_line, "envs_16k": big.num_envs, "scan_heights_check_16k": scan_row,
+                "iteration_16k": modes})
+    emit(row)
+    return {"scan_heights": row["scan_heights_launches"]}
+
+
 # the eval-reference phase's limits on the rollout's errors (see there)
 EVAL_ROLLOUT_TOL = {"lin_vel_rmsd": 1e-5, "ang_vel_rmsd": 2e-4, "lin_vel_x": 3e-5,
                     "ang_vel_yaw": 3e-4, "base_height": 6e-7, "max_torques": 5e-4,
@@ -1841,6 +2023,10 @@ def main(argv=None) -> int:
     # data parallelism: two ranks against one, then the main path over two
     timed("dp_reference", phase_dp_reference, dev, card_line)
     by_path.update(timed("train_dp", phase_train_dp, dev, card_line, trained["train"]))
+    # windowed histories: against stored ones at full width, then the main path
+    timed("window_reference", phase_window_reference, dev, card_line)
+    by_path["train_window"] = timed("train_window", phase_train_window, dev, card_line,
+                                    trained["train"])
     emit({"phase_seconds": seconds, "card": card_line})
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}

@@ -8,6 +8,14 @@ update: one permutation shared by every epoch (rollout_storage.py:102), the
 adaptive-KL learning rate per minibatch (ppo.py:112-124) and the
 adaptation-module substep with its own Adam (ppo.py:164-185).
 
+With ``PPOArgs.windowed_history`` the rollout stores no history rows: each
+env's history is one contiguous window of its frame stream (the window
+shifts across an auto-reset with no done masking), so the update cuts every
+minibatch's rows from that stream (:func:`frame_stream`,
+:func:`stream_windows`) where the minibatch is used, bitwise the rows it
+would have stored.  The buffer then holds each frame once instead of K
+times.
+
 The module's parameters are the training state's ``params``: the update
 changes them in place.  Histories are stored bf16, as the env keeps them,
 and read as float32 by the policy, as flax promotes them.  The adaptive
@@ -66,9 +74,12 @@ class PPOArgs:
     max_adaptive_lr: float = 1e-2
     max_grad_norm: float = 1.0
     num_steps_per_env: int = 24
-    # the JAX package's O(B) shuffle (cheap_perm) for large batches, and its
-    # windowed history storage (a TPU layout device with bitwise-equal
-    # histories, not ported); both off by default
+    # the JAX package's O(B) shuffle (cheap_perm) for large batches, and
+    # windowed histories: the rollout keeps each frame once and the update
+    # cuts the K-frame windows from the frame stream, bitwise the stored
+    # rows (the knob for memory at large env counts or long histories).
+    # Both off by default; windowed_history turns itself off under
+    # normalize_obs, whose stored histories are whitened step by step
     cheap_shuffle: bool = False
     windowed_history: bool = False
     # trailing cfg.env.num_eval_envs envs act with the deterministic teacher
@@ -98,6 +109,42 @@ def cheap_perm(B: int, T: int, N: int, a0, c1, c2) -> torch.Tensor:
     return torch.remainder(i32(a2 * p + c2.long()), B)
 
 
+def frame_stream(h_first, s0, frames, K: int, num_obs: int) -> torch.Tensor:
+    """The (N, 2K - 2 + T, num_obs) bf16 frame stream the histories of a
+    rollout are cut from (the JAX package's ``_window_histories``,
+    ``learn/ppo.py:318``):
+
+        F = [ h_first (K frames) | s0 frames 1..K-1 | f_1 .. f_{T-1} ]
+
+    ``h_first`` (N, K * num_obs): the history the policy acted on at step 0;
+    ``s0`` (N, K * num_obs): the env state's history before the rollout;
+    ``frames`` (T, N, num_obs): the rollout's float32 obs, cast to bf16 as
+    the env casts the frame it appends.  After the Runner's ``observe``,
+    ``h_first`` is a virtual row (observe appends f_0 without storing it in
+    the state), so its f_0 never enters the stream that the steps extend;
+    after a step, ``h_first`` is ``s0``.  Either way the history at step t
+    is the window starting at 0 for t = 0 and at K + t - 1 after."""
+    n = h_first.shape[0]
+    return torch.cat([h_first.reshape(n, K, num_obs),
+                      s0.reshape(n, K, num_obs)[:, 1:].to(h_first.dtype),
+                      frames[1:].transpose(0, 1).to(h_first.dtype)], dim=1)
+
+
+def stream_windows(F, t_idx, n_idx, K: int) -> torch.Tensor:
+    """The (B, K * num_obs) history rows of the samples (t_idx, n_idx), each
+    a window of K frames of env n_idx's stream ``F`` (:func:`frame_stream`),
+    gathered by advanced indexing: a new tensor, no view of ``F``."""
+    start = torch.where(t_idx == 0, 0, K + t_idx - 1)
+    rows = start[:, None] + torch.arange(K, device=F.device)
+    return F[n_idx[:, None], rows].reshape(t_idx.shape[0], -1)
+
+
+def window_histories(h_first, s0, frames, t_idx, n_idx, K: int, num_obs: int) -> torch.Tensor:
+    """The history rows of the samples (t_idx, n_idx) rebuilt from the frame
+    stream: bitwise the rows the rollout would have stored."""
+    return stream_windows(frame_stream(h_first, s0, frames, K, num_obs), t_idx, n_idx, K)
+
+
 class TrainState(NamedTuple):
     params: dict                    # name -> the module's parameter (live)
     opt_state: AdamState
@@ -111,7 +158,7 @@ class Transition(NamedTuple):
     """One rollout step for all envs; ``rollout`` stacks T of them."""
     obs: torch.Tensor
     privileged_obs: torch.Tensor
-    obs_history: torch.Tensor      # bf16, as the env stores it
+    obs_history: torch.Tensor      # bf16, as the env stores it; (N, 0) when windowed
     actions: torch.Tensor
     rewards: torch.Tensor
     dones: torch.Tensor
@@ -145,9 +192,6 @@ class PPO:
         ``act_teacher``); the CSE MLP of ``ac_args`` when None."""
         self.env = env
         self.args = args or PPOArgs()
-        if self.args.windowed_history:
-            raise NotImplementedError("PPOArgs.windowed_history, a TPU layout device, "
-                                      "is not ported")
         ac_args = ac_args or ACArgs()
         self.ac = (ac if ac is not None else ActorCriticCSE(
             num_obs=env.num_obs, num_privileged_obs=env.num_privileged_obs,
@@ -156,6 +200,10 @@ class PPO:
         # a policy's args may lack normalize_obs (ACRmaArgs has none)
         self.normalize_obs = bool(getattr(getattr(self.ac, "args", None), "normalize_obs",
                                           False))
+        # windowed histories hold only where the stored rows are raw frames
+        # (JAX, learn/ppo.py:159-162): off under normalize_obs
+        self._window_history = self.args.windowed_history and not self.normalize_obs
+        self._frames = env.num_obs_history // env.num_obs     # K, the history's frames
         self.device = env.device
         # a data-parallel rank's shard of the envs; n_eval, n_train and
         # n_mix count global envs
@@ -221,7 +269,9 @@ class PPO:
         Returns (env_state, last_obs_dict, traj, metrics, obs_rms), with
         traj a Transition of (T, N, ...) tensors and metrics a dict of
         (T, N, ...); with ``record_video``, ``metrics["video"]`` holds env0's
-        (T, .) base_pos, base_quat and qj after each step."""
+        (T, .) base_pos, base_quat and qj after each step.  With windowed
+        histories ``traj.obs_history`` is (T, N, 0): the update cuts the
+        rows from the frame stream instead."""
         T = self.args.num_steps_per_env
         ac = self.ac
         steps, metrics, frames = [], [], []
@@ -257,7 +307,8 @@ class PPO:
             env_state, out = self.env.step_fn(env_state, actions)
             # timeout bootstrap (ppo_cse/ppo.py:86-89)
             rew = out.rew + self.args.gamma * value * out.info["time_outs"]
-            steps.append(Transition(obs=o, privileged_obs=p, obs_history=h16,
+            h_store = h16.new_empty((h16.shape[0], 0)) if self._window_history else h16
+            steps.append(Transition(obs=o, privileged_obs=p, obs_history=h_store,
                                     actions=actions, rewards=rew, dones=out.done,
                                     values=value, log_prob=log_prob, mu=mean, sigma=std))
             metrics.append({k: out.info[k] for k in
@@ -308,13 +359,15 @@ class PPO:
         """The minibatches of (T, N, ...) tensors under one permutation of
         the flattened samples, which serves every epoch.
 
-        One rank: the tensors gathered once into permuted order as
-        (num_mini_batches, mb, ...), each minibatch a contiguous slice.  Under
-        data parallelism: N is the rank's train envs, the permutation runs
-        over the global ``t * N_global + n`` index, and minibatch i is the
-        rank's samples among its positions, in order, with their positions
-        in the global minibatch (the adaptation split reads them).  Returns
-        (mb, [(tensors_i, positions_i or None) for each minibatch])."""
+        One rank: minibatch i is the samples ``perm[i mb:(i + 1) mb]``.
+        Under data parallelism: N is the rank's train envs, the permutation
+        runs over the global ``t * N_global + n`` index, and minibatch i is
+        the rank's samples among its positions, in order, with their
+        positions in the global minibatch (the adaptation split reads them).
+        A None among ``tensors`` (the history, when windowed) takes the
+        samples' local (t, n) in its place, which :meth:`_with_windows`
+        turns into rows.  Returns (mb, [(tensors_i, positions_i or None) for
+        each minibatch])."""
         nm = self.args.num_mini_batches
         T, n = tensors[0].shape[:2]
         N = self.n_train if self.dp else n
@@ -322,20 +375,34 @@ class PPO:
         if perm is None:
             perm = self._perm(nm * mb, T, N)
         perm = perm.to(self.device)
-        flat = [x.reshape((T * n,) + x.shape[2:]) for x in tensors]
+        flat = [None if x is None else x.reshape((T * n,) + x.shape[2:]) for x in tensors]
         if not self.dp:
-            grouped = [x[perm].reshape((nm, mb) + x.shape[1:]) for x in flat]
-            return mb, [([x[i] for x in grouped], None) for i in range(nm)]
-        t, e = perm // N, perm % N - self.shard.start
-        mine = (e >= 0) & (e < n)
-        pos = torch.arange(mb, device=self.device)
-        batches = []
-        for i in range(nm):
-            sl = slice(i * mb, (i + 1) * mb)
-            keep = mine[sl]
-            idx = (t[sl] * n + e[sl])[keep]
-            batches.append(([x[idx] for x in flat], pos[keep]))
-        return mb, batches
+            idx = [perm[i * mb:(i + 1) * mb] for i in range(nm)]
+            pos = [None] * nm
+        else:
+            t, e = perm // N, perm % N - self.shard.start
+            mine = (e >= 0) & (e < n)
+            at = torch.arange(mb, device=self.device)
+            sls = [slice(i * mb, (i + 1) * mb) for i in range(nm)]
+            idx = [(t[sl] * n + e[sl])[mine[sl]] for sl in sls]
+            pos = [at[mine[sl]] for sl in sls]
+        take = lambda x, i: (i // n, i % n) if x is None else x[i]
+        return mb, [([take(x, i) for x in flat], p) for i, p in zip(idx, pos)]
+
+    def _stream(self, h0, frames):
+        """The frame stream of the train envs' rollout (:func:`frame_stream`)
+        from ``h0`` = (h_first, s0), or None without windowed histories."""
+        if not self._window_history:
+            return None
+        return frame_stream(*h0, frames, self._frames, self.env.num_obs)
+
+    def _with_windows(self, batch, stream):
+        """A minibatch as the update reads it: with a frame ``stream``, the
+        samples' (t, n) in the history's place become their rows, gathered
+        here, so the update holds one minibatch of windows at a time."""
+        if stream is None:
+            return batch
+        return [batch[0], stream_windows(stream, *batch[1], self._frames), *batch[2:]]
 
     def _mean(self, mb):
         """The minibatch mean: ``torch.mean`` on one rank; under data
@@ -432,18 +499,23 @@ class PPO:
         return ts._replace(opt_state=opt_state, adapt_opt_state=adapt_opt_state,
                            learning_rate=lr), stats
 
-    def update(self, ts: TrainState, traj: Transition, returns, advantages, perm=None):
+    def update(self, ts: TrainState, traj: Transition, returns, advantages, perm=None,
+               h0=None):
         """``num_learning_epochs`` passes over the buffer in
         ``num_mini_batches`` minibatches.  ``perm``: the permutation of the
-        flattened (T * N) samples; drawn from the PPO generator when None."""
+        flattened (T * N) samples; drawn from the PPO generator when None.
+        ``h0``: with windowed histories, (h_first, s0) of ``traj``'s envs from
+        before the rollout (:func:`frame_stream`)."""
         a = self.args
+        stream = self._stream(h0, traj.obs)
         mb, batches = self._permuted(
-            (traj.obs, traj.obs_history, traj.privileged_obs, traj.actions, traj.values,
-             advantages, returns, traj.log_prob, traj.mu, traj.sigma), perm)
+            (traj.obs, None if stream is not None else traj.obs_history, traj.privileged_obs,
+             traj.actions, traj.values, advantages, returns, traj.log_prob, traj.mu,
+             traj.sigma), perm)
         stats = []
         for _ in range(a.num_learning_epochs):
             for batch, pos in batches:
-                ts, s = self._minibatch_update(ts, batch, pos, mb)
+                ts, s = self._minibatch_update(ts, self._with_windows(batch, stream), pos, mb)
                 stats.append(s)
         mean_stats = torch.stack(stats).mean(dim=0)
         metrics = {"value_loss": mean_stats[0], "surrogate_loss": mean_stats[1],
@@ -460,16 +532,20 @@ class PPO:
         bitwise frozen.  Returns (ts, env_state, last_obs, metrics,
         warmup_opt_state)."""
         a = self.args
+        h0 = self._h0(env_state, obs_dict)
         env_state, last_obs, traj, _, obs_rms = self.rollout(
             env_state, obs_dict, action_noise, ts.obs_rms)
         traj, last_values = self._train_part(traj, self._last_values(last_obs, obs_rms))
         returns, _ = self.compute_gae(traj, last_values)
-        mb, batches = self._permuted((traj.obs, traj.obs_history, traj.privileged_obs,
-                                      traj.values, returns), perm)
+        stream = self._stream(h0, traj.obs)
+        mb, batches = self._permuted(
+            (traj.obs, None if stream is not None else traj.obs_history, traj.privileged_obs,
+             traj.values, returns), perm)
         params = ts.params
         v_ls = []
         for _ in range(a.num_learning_epochs):
-            for (o, h, p, target_values, rets), _ in batches:
+            for batch, _ in batches:
+                o, h, p, target_values, rets = self._with_windows(batch, stream)
                 v_l = self._value_loss(self.ac.evaluate(o, p, h.float()), target_values, rets,
                                        self._mean(mb))
                 grads = torch.autograd.grad(v_l, list(params.values()),
@@ -499,6 +575,15 @@ class PPO:
         sl = self._rows(0, self.n_train)
         return Transition(*(x[:, sl] for x in traj)), last_values[sl]
 
+    def _h0(self, env_state, obs_dict):
+        """With windowed histories, the train envs' (h_first, s0) before a
+        rollout: the history the policy acts on at step 0 and the env
+        state's (JAX, learn/ppo.py:617-624); None without."""
+        if not self._window_history:
+            return None
+        sl = self._rows(0, self.n_train)
+        return obs_dict["obs_history"][sl], env_state.obs_history[sl]
+
     @torch.no_grad()
     def _last_values(self, last_obs, obs_rms):
         h = last_obs["obs_history"]
@@ -512,12 +597,13 @@ class PPO:
         (the reference's --freeze_model data collection).  ``action_noise``
         and ``perm`` as for :meth:`rollout` and :meth:`update`.  Returns
         (ts, env_state, last_obs, metrics)."""
+        h0 = self._h0(env_state, obs_dict) if update_model else None
         env_state, last_obs, traj, roll_metrics, obs_rms = self.rollout(
             env_state, obs_dict, action_noise, ts.obs_rms)
         traj_train, last_values = self._train_part(traj, self._last_values(last_obs, obs_rms))
         if update_model:
             returns, advantages = self.compute_gae(traj_train, last_values)
-            ts, metrics = self.update(ts, traj_train, returns, advantages, perm)
+            ts, metrics = self.update(ts, traj_train, returns, advantages, perm, h0)
         else:
             z = torch.zeros((), device=self.device)
             metrics = {"value_loss": z, "surrogate_loss": z, "adaptation_loss": z,

@@ -263,6 +263,44 @@ def test_train_iteration_on_card_is_finite(cuda_device):
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
 
 
+@pytest.mark.cuda
+def test_windowed_train_iterations_on_card_match_stored(cuda_device):
+    """Two train iterations of 64 envs on the card (3-step episodes; the
+    first started by observe, the second by a step), histories windowed and
+    stored, from one seed: parameters, Adam states, learning rate and
+    metrics bitwise; B1 once per rollout step either way."""
+    from legged_tracking_torch.learn.ppo import PPO, PPOArgs
+
+    runs = []
+    for windowed in (False, True):
+        env = LeggedEnv(tunnel_cfg(64, 8), seed=3, device=cuda_device)
+        torch.manual_seed(0)
+        alg = PPO(env, args=PPOArgs(windowed_history=windowed), seed=0)
+        assert alg._window_history == windowed
+        ts = alg.init()
+        state = env.reset_fn(True)
+        obs = env.observe(state)
+        before = scan.scan_heights.launches
+        metrics = []
+        for _ in range(2):
+            ts, state, obs, m = alg.train_iteration(ts, state, obs)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        assert scan.scan_heights.launches == before + 2 * alg.args.num_steps_per_env
+        runs.append((ts, metrics))
+    (a, ma), (b, mb) = runs
+    for x, y in ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+                 (a.opt_state.nu, b.opt_state.nu), (a.adapt_opt_state.mu, b.adapt_opt_state.mu),
+                 (a.adapt_opt_state.nu, b.adapt_opt_state.nu)):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    assert torch.equal(a.learning_rate, b.learning_rate)
+    for m1, m2 in zip(ma, mb):
+        assert int(m1["num_episodes"]) > 0
+        for k in m1:
+            assert torch.equal(m1[k], m2[k]), k
+
+
 def goal_cfg(num_envs, tiles=2):
     """The published goal recipe (stage A of ``tools/goal_recipe.sh``):
     random_pyramid tiles of 100x32 cells, the default policy's obs."""

@@ -33,6 +33,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The one-rank side runs single-threaded, as the ranks do, beside the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_env(shard=None):
     """tests/test_distributed.py's 8-env plane env (xy commands, P control)."""
     cfg = config_go1(Cfg())
@@ -77,13 +87,15 @@ def rollout(env, steps=3):
     return out, state
 
 
-def train(env):
+def train(env, windowed=False):
     """Two PPO train iterations (4 steps, 2 x 2 minibatches) from a seeded
-    policy and reset; the parameters after them."""
+    policy and reset, histories stored or ``windowed``; the parameters after
+    them."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         alg = PPO(env, args=PPOArgs(num_steps_per_env=4, num_mini_batches=2,
-                                    num_learning_epochs=2), seed=2)
+                                    num_learning_epochs=2, windowed_history=windowed),
+                  seed=2)
     ts = alg.init()
     env.generator.manual_seed(1)
     es = env.reset_fn(False)
@@ -108,9 +120,11 @@ def rank_work(outdir):
     steps, _ = rollout(make_env(shard))
     _, vstate = rollout(velocity_env(shard), steps=8)
     params, metrics = train(make_env(shard))
+    params_w, metrics_w = train(make_env(shard), windowed=True)
     runner = small_runner(make_env(), os.path.join(outdir, f"run{rank}"), distributed=True)
     runner.learn(2, verbose=False)
     res = {"rollout": steps, "params": params, "metrics": metrics,
+           "params_windowed": params_w, "metrics_windowed": metrics_w,
            "runner_params": {k: v.detach().clone() for k, v in
                              runner.train_state.params.items()},
            "history": runner.history,
@@ -130,6 +144,13 @@ def ranks(tmp_path_factory):
         with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
             res.append(pickle.load(f))
     return out, res
+
+
+@pytest.fixture(scope="module")
+def one_rank_train():
+    """One rank's two train iterations with stored histories, the reference
+    of the sharded cases."""
+    return train(make_env())
 
 
 def cat(parts):
@@ -222,9 +243,9 @@ def test_sharded_velocity_curriculum_matches_one_rank(ranks):
                                state.commands.numpy(), atol=1e-5)
 
 
-def test_sharded_train_iterations_match_one_rank(ranks):
+def test_sharded_train_iterations_match_one_rank(ranks, one_rank_train):
     _, res = ranks
-    params, metrics = train(make_env())
+    params, metrics = one_rank_train
     for k, v in params.items():
         for r in res:
             np.testing.assert_allclose(r["params"][k].numpy(), v.numpy(), atol=2e-4,
@@ -233,6 +254,26 @@ def test_sharded_train_iterations_match_one_rank(ranks):
     for k in ("value_loss", "surrogate_loss", "adaptation_loss", "kl_mean",
               "mean_reward_per_step", "action_std_mean", "num_episodes"):
         np.testing.assert_allclose(res[0]["metrics"][k].numpy(), metrics[k].numpy(),
+                                   rtol=2e-3, atol=2e-4, err_msg=k)
+
+
+def test_sharded_windowed_train_iterations_match_one_rank_stored(ranks, one_rank_train):
+    """Two ranks with windowed histories, each cutting the windows of its own
+    envs from its own frame stream, against one rank that stores them:
+    within the same bars; the ranks' parameters equal, and bitwise those of
+    the two ranks that store them."""
+    _, res = ranks
+    params, metrics = one_rank_train
+    for k, v in params.items():
+        for r in res:
+            np.testing.assert_allclose(r["params_windowed"][k].numpy(), v.numpy(), atol=2e-4,
+                                       rtol=2e-3, err_msg=k)
+            torch.testing.assert_close(r["params_windowed"][k], r["params"][k], rtol=0, atol=0)
+        torch.testing.assert_close(res[0]["params_windowed"][k], res[1]["params_windowed"][k],
+                                   rtol=0, atol=0)
+    for k in ("value_loss", "surrogate_loss", "adaptation_loss", "kl_mean",
+              "mean_reward_per_step", "action_std_mean", "num_episodes"):
+        np.testing.assert_allclose(res[0]["metrics_windowed"][k].numpy(), metrics[k].numpy(),
                                    rtol=2e-3, atol=2e-4, err_msg=k)
 
 

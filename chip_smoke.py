@@ -16,33 +16,49 @@ Phases, each printing one JSON line:
    (kernels) from the same state with the same random draws and holds the
    card's observations, rewards and base positions to the CPU's, within
    limits of 5 to 20 times the float32-reordering errors read on an H100.
-4. rollout: the acting half of the main path.  The bench configuration
+4. physics-oracle: the engine's physics at the bench's 4096 envs against
+   the dense rigid-body oracle (``dynamics.body_state``, ``mass_matrix``,
+   ``forward_dynamics``, ``contact.apparent_masses``: an 18x18 composite
+   mass matrix with an explicit inverse), on random states, payloads,
+   base-COM offsets, torques and wrenches from a numpy seed: the sparse
+   path's body velocities, mass blocks, solve, accelerations and apparent
+   masses within the JAX package's bars of the dense ones
+   (``tests/test_sparse_dynamics.py``); the dense oracle on the card within
+   limits of 5 to 20 times its H100 errors of the same code on the CPU
+   (64 envs); and the anchors of ``tests/test_physics.py``: free fall,
+   M symmetric positive definite with the total mass 11.309932 kg, energy
+   drift under 1 % over 100 passive dense substeps, drop-and-stand on the
+   plane for 150 control steps under P and the actuator net (heights, |v|,
+   the feet carrying 111 N within 2 %), and, in the P run, half the envs
+   at friction 1.5 and half at 0.0 copied at step 100 and pushed sideways
+   at 0.5 m/s.  Prints every error beside its limit and its seconds.
+5. rollout: the acting half of the main path.  The bench configuration
    (``bench.py:build``) at 4096 envs with the default CSE actor-critic:
    reset, observe, then two 24-step ``PPO.rollout``s, the second timed.
    Checks that obs, rewards and values are finite and of the expected
    shapes, and that every kernel was launched on this path (the scan: once
    per step, once at observe).
-5. update-reference: one ``train_iteration`` (rollout, GAE, 5 x 4
+6. update-reference: one ``train_iteration`` (rollout, GAE, 5 x 4
    minibatches) of 8 envs on the card and on the CPU from the same state,
    parameters, env draws, action noise and permutation; the card's
    parameters, Adam moments, learning rate and losses are held to the
    CPU's within limits of 5 to 20 times the errors read on an H100.
-6. cnn-update-reference: the same for the goal configuration with
+7. cnn-update-reference: the same for the goal configuration with
    ``ActorCriticCNN`` (conv encoder and GRU).
-7. velocity-reference: the same for the velocity env (8 envs, curriculum
+8. velocity-reference: the same for the velocity env (8 envs, curriculum
    resamples every 2 steps, 5-step episodes) with the CSE policy; the
    curriculum's weights, bins and categories and the commands bitwise.
-8. rma-update-reference: the same with ``ActorCriticRMA``.
-9. planner: the local planner at 4096 envs x 462 scan points x 1,575
+9. rma-update-reference: the same with ``ActorCriticRMA``.
+10. planner: the local planner at 4096 envs x 462 scan points x 1,575
    candidates: the quadform's validity against the direct form's (zero
    mismatches), the device time of one ``_plan_local_targets`` (CUDA
    events) beside its byte reckoning, and its peak memory.
-10. planner-reference: 8 envs of the hierarchy configuration, replanning
+11. planner-reference: 8 envs of the hierarchy configuration, replanning
    every 2 steps, stepped 5 times on the card and on the CPU from one
    state with the same draws: the same choices, and obs, rewards, base
    positions and local targets within limits of 5 to 20 times the
    readings on an H100.
-11. train: the main path.  The bench configuration at 4096 envs trained by
+12. train: the main path.  The bench configuration at 4096 envs trained by
    the port's ``Runner.learn`` for 4 iterations into a temporary logdir,
    which the eval phases read (as the next three phases' runs).
    Checks finite metrics, parameters that moved, the scan launched 24
@@ -51,24 +67,24 @@ Phases, each printing one JSON line:
    over the iterations after the first (host clock, each iteration between
    two synchronizes), their rollout/update split (CUDA events, no barrier
    inside an iteration) and the peak memory.
-12. train-goal: the goal path, stage A of ``tools/goal_recipe.sh`` at 4096
+13. train-goal: the goal path, stage A of ``tools/goal_recipe.sh`` at 4096
    envs with its default policy (``ActorCriticCNN``, MLP encoder), held
    as the train phase is, after B1 is held bitwise at its 100x32 tiles.
-13. train-hierarchy: the planner path, ``train_hierarchy``'s defaults (4000
+14. train-hierarchy: the planner path, ``train_hierarchy``'s defaults (4000
    envs, the planner replanning every 100 steps), held the same way, with
    the planner's share of the rollout; B1 launches twice while the Runner
    starts (the scan ``reset_fn`` stores for the planner, and observe).
-14. train-velocity: the velocity path, ``scripts/train_velocity_tracking
+15. train-velocity: the velocity path, ``scripts/train_velocity_tracking
    .py``'s defaults (4000 envs, 30x30 tiles of 50x50 cells, the 441-bin
    command curriculum over 4 gaits, the CSE policy), held the same way; it
    observes no heights, so B1 is launched 0 times.
-15. eval-reference: ``eval.rollout_metrics`` of the bench run's checkpoint,
+16. eval-reference: ``eval.rollout_metrics`` of the bench run's checkpoint,
    8 envs with DR and noise off, 5 steps on the card and on the CPU from
    one reset state with the same draws; every env's nine metrics and
    adaptation loss, and the frames' base positions, then the metrics of
    the CPU's final state computed on the card, within limits of 5 to 20
    times the readings on an H100.
-16. eval: the eval entries on the four runs at their own widths, depths cut
+17. eval: the eval entries on the four runs at their own widths, depths cut
    to 100 steps (printed): ``eval``'s rollout and metrics (16 envs) on each
    run, ``eval_reached`` (1,024 envs) on the goal run and
    ``play_hierarchical`` (1 env, the planner every 100 steps) on the
@@ -76,7 +92,7 @@ Phases, each printing one JSON line:
    held to the count the code gives (one a step, one at each observe, one
    at a reset that stores the planner's scan; none on the velocity run),
    and B1 is held bitwise at each tunnel env's width first.  No rendering.
-17. deploy: the deploy stack with its policy on the card.  The port's C++
+18. deploy: the deploy stack with its policy on the card.  The port's C++
    bridge (``deploy/bridge``) is built with cmake and started as a
    subprocess on a bus of the phase's own (``LCM_DEFAULT_URL``), and each
    deploy entry's wiring runs 300 control steps at the reference's 20 ms
@@ -90,21 +106,21 @@ Phases, each printing one JSON line:
    policy's latency a step (CUDA events around the forward; the host clock
    from the obs array to the action array) and the loop period, median
    and p99.
-18. actuator-net: the actuator-net trainer fitted on the card to a log of
+19. actuator-net: the actuator-net trainer fitted on the card to a log of
    the bench path: the bench run's policy drives the bench configuration
    at 4096 envs for 100 steps (B1 101 times), the joint log becomes
    4,816,896 samples, the card's fit is held to the CPU's for one epoch
    over 65,536 samples, then the fit at the script's defaults runs 2
    epochs (1,175 minibatches each; seconds an epoch, microseconds a
    minibatch, peak memory), and the written npz loads back and steps.
-19. dp-reference: data parallelism against one rank: the 8-env
+20. dp-reference: data parallelism against one rank: the 8-env
    configuration of ``tests/test_distributed.py``, 3 env steps and 2
    ``Runner.learn`` iterations (4 steps, 2 x 2 minibatches), run by two
    ranks that share the card over gloo (named; NCCL refuses two ranks on
    one card, and the machine has one) and by one rank; rollout base
    positions and obs within 1e-5, parameters within atol 2e-4 / rtol 2e-3
    (the JAX package's bars), the ranks' parameters equal.
-20. train-dp: the main path over two such ranks: the bench configuration at
+21. train-dp: the main path over two such ranks: the bench configuration at
    4096 global envs, 2048 a rank, B1 held bitwise at each rank's width and
    rows, then ``Runner.learn`` for 4 iterations, each rank held as the
    train phase is (B1 97 launches on each, rank 0 the only writer of the
@@ -113,7 +129,7 @@ Phases, each printing one JSON line:
    rollout/update split, the all-reduce's share of its update (CUDA events
    around each collective) and its peak memory, which the ranks report to
    this process as JSON.
-21. window-reference: windowed histories (``PPOArgs.windowed_history``)
+22. window-reference: windowed histories (``PPOArgs.windowed_history``)
    against stored ones at full width, on the bench (4096 envs, 261 x 15)
    and on the velocity defaults (4000 envs, 70 x 30): one rollout storing
    its histories, every one of its T x N rows rebuilt by
@@ -121,7 +137,7 @@ Phases, each printing one JSON line:
    at atol 0, then one ``update`` each way from one TrainState and
    permutation: parameters, Adam moments, learning rate and losses
    bitwise, or within the update-reference limits with the errors printed.
-22. train-window: the main path with windowed histories, the bench at 4096
+23. train-window: the main path with windowed histories, the bench at 4096
    envs through ``Runner.learn`` with ``PPOArgs(windowed_history=True)``
    for 4 iterations, held as the train phase is (B1 97 launches), its
    train env-steps/s and peak memory printed beside the train phase's of
@@ -515,6 +531,305 @@ def phase_reference(dev, card_line: str):
           "max_abs_err": errs, "tolerance": tol, "rew_max": rew_max})
     if bad:
         raise AssertionError(f"card vs CPU beyond tolerance: {bad}")
+
+
+# ---------------------------------------------------------------- physics-oracle
+# the Go1's standing joint angles (FR, FL, RR, RL x hip, thigh, calf) and its
+# total mass, the anchors of the JAX package's tests/test_physics.py
+GO1_DEFAULT_Q = (-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 1.0, -1.5, 0.1, 1.0, -1.5)
+GO1_MASS = 11.309932
+GRAVITY = 9.81
+
+# the sparse engine against the dense oracle: the bars (rtol, atol) of the
+# JAX package's tests/test_sparse_dynamics.py, which holds its own sparse
+# engine to its dense oracle
+SPARSE_BARS = {"omega": (0.0, 1e-5), "u": (0.0, 1e-5), "mass_blocks": (0.0, 2e-4),
+               "solve": (2e-3, 2e-3), "forward_dynamics": (2e-3, 2e-2),
+               "apparent_masses": (5e-3, 5e-4)}
+# the dense oracle on the card against the same code on the CPU (the first
+# ORACLE_CPU_ENVS envs), max abs error; on an H100 the errors read 1.2e-7
+# (J), 3.0e-7 (M, entries up to 12), 4.0e-4 (M^-1, up to about 400),
+# 5.4e-3 (qdd, up to about 7e3) and 4.8e-6 (W); each limit 8 to 11 times that
+ORACLE_CPU_ENVS = 64
+ORACLE_CARD_TOL = {"J": 1e-6, "M": 3e-6, "Minv": 4e-3, "qdd": 5e-2, "W": 5e-5}
+
+
+def oracle_inputs(n: int, seed: int = 7) -> dict:
+    """n random states and loads (CPU float32 tensors) with the ranges of
+    tests/test_sparse_dynamics.py: base position U(-1, 1) + 0.4 m in z, Euler
+    angles U(-0.6, 0.6), joint angles U(-1.2, 1.2), velocities U(-1, 1), a
+    payload and a base-COM offset per env, joint torques N(0, 5^2), body
+    wrenches N(0, 10^2) and a right-hand side N(0, 1) for the solve."""
+    import numpy as np
+    import torch
+
+    from legged_tracking_torch.utils import quat
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    ang = f32(rng.uniform(-0.6, 0.6, (n, 3)))
+    return {
+        "base_pos": f32(rng.uniform(-1, 1, (n, 3)) + [0.0, 0.0, 0.4]),
+        "base_quat": quat.quat_from_euler_xyz(ang[:, 0], ang[:, 1], ang[:, 2]),
+        "qj": f32(rng.uniform(-1.2, 1.2, (n, 12))),
+        "v": f32(rng.uniform(-1, 1, (n, 18))),
+        "payload": f32(rng.uniform(-0.4, 0.7, n)),
+        "com_offset": f32(rng.uniform(-0.05, 0.05, (n, 3))),
+        "tau": f32(rng.normal(0.0, 5.0, (n, 12))),
+        "f_ext": f32(rng.normal(0.0, 10.0, (n, 13, 6))),
+        "gravity": f32(np.tile([0.0, 0.0, -GRAVITY], (n, 1))),
+        "rhs": f32(rng.normal(size=(n, 18))),
+    }
+
+
+def dense_oracle(model, x: dict) -> dict:
+    """The dense formulation on ``x``: body state, M, M^-1, qdd and W."""
+    from legged_tracking_torch.physics import contact, dynamics
+    args = (x["base_pos"], x["base_quat"], x["qj"], x["v"])
+    bs = dynamics.body_state(model, *args, x["com_offset"])
+    mm = dynamics.mass_matrix(model, bs, x["payload"])
+    qdd = dynamics.forward_dynamics(model, *args, x["tau"], x["f_ext"], x["gravity"], bs, mm,
+                                    x["com_offset"])
+    return {"J": bs.J, "omega": bs.omega, "u": bs.u, "M": mm.M, "Minv": mm.Minv, "qdd": qdd,
+            "W": contact.apparent_masses(model, bs, mm)}
+
+
+def bar_ratio(a, b, rtol: float, atol: float) -> float:
+    """max |a - b| / (atol + rtol |b|): at most 1 where allclose holds."""
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def sparse_vs_dense(model, x: dict, dense: dict) -> dict:
+    """The engine's sparse path (``sparse.velocity_jvp``, ``factorize``,
+    ``solve``, ``forward_dynamics``, ``apparent_masses``) on ``x`` against
+    the dense oracle's outputs: {check: (max abs error, ratio to its bar)}."""
+    import torch
+
+    from legged_tracking_torch.physics import sparse
+    args = (x["base_pos"], x["base_quat"], x["qj"], x["v"])
+    bs, alpha_vp, acc_vp = sparse.velocity_jvp(model, *args, x["com_offset"])
+    fac = sparse.factorize(model, bs.fk, x["payload"])
+    # the dense matrix assembled from the arrow blocks
+    M = torch.zeros_like(dense["M"])
+    M[:, :6, :6] = fac.A
+    for leg in range(4):
+        s = slice(6 + 3 * leg, 9 + 3 * leg)
+        M[:, :6, s] = fac.B[:, leg]
+        M[:, s, :6] = fac.B[:, leg].transpose(1, 2)
+        M[:, s, s] = fac.D[:, leg]
+    pairs = {
+        "omega": (bs.omega, dense["omega"]),
+        "u": (bs.u, dense["u"]),
+        "mass_blocks": (M, dense["M"]),
+        "solve": (sparse.solve(fac, x["rhs"]),
+                  torch.matmul(dense["Minv"], x["rhs"][..., None])[..., 0]),
+        "forward_dynamics": (sparse.forward_dynamics(
+            model, *args, x["tau"], x["f_ext"], x["gravity"], bs, fac, x["com_offset"],
+            vp=(alpha_vp, acc_vp)), dense["qdd"]),
+        "apparent_masses": (sparse.apparent_masses(model, bs.fk, fac), dense["W"]),
+    }
+    return {k: (float((a - b).abs().max()), bar_ratio(a, b, *SPARSE_BARS[k]))
+            for k, (a, b) in pairs.items()}
+
+
+def anchor_free_fall(model, x: dict) -> dict:
+    """At rest under gravity alone, at any configuration, every body falls
+    at g: qdd = (0, 0, -9.81 | 0 | 0).  M is symmetric positive definite
+    and its base-translation block is the total mass (with payload) times
+    I.  {check: max abs error}, and the least eigenvalue of M."""
+    import torch
+
+    from legged_tracking_torch.physics import dynamics
+    args = (x["base_pos"], x["base_quat"], x["qj"], torch.zeros_like(x["v"]))
+    bs = dynamics.body_state(model, *args, x["com_offset"])
+    mm = dynamics.mass_matrix(model, bs, x["payload"])
+    qdd = dynamics.forward_dynamics(model, *args, torch.zeros_like(x["tau"]),
+                                    torch.zeros_like(x["f_ext"]), x["gravity"], bs, mm,
+                                    x["com_offset"])
+    fall = torch.zeros_like(qdd[:, :6])
+    fall[:, 2] = -GRAVITY
+    mass = (GO1_MASS + x["payload"])[:, None, None] * torch.eye(3, device=qdd.device)
+    return {"free_fall_base": float((qdd[:, :6] - fall).abs().max()),
+            "free_fall_joints": float(qdd[:, 6:].abs().max()),
+            "M_asymmetry": float((mm.M - mm.M.transpose(1, 2)).abs().max()),
+            "M_translation_mass": float((mm.M[:, :3, :3] - mass).abs().max()),
+            "M_min_eigenvalue": float(torch.linalg.eigvalsh(mm.M).min())}
+
+
+def anchor_energy(model, x: dict) -> float:
+    """The worst relative drift of E = T + V over 100 passive dense
+    substeps of 5 ms (no contact, no torque, gravity on) from the random
+    states raised by 10 m, each env as tests/test_physics.py runs its one."""
+    import torch
+
+    from legged_tracking_torch.physics import dynamics
+    bp = x["base_pos"] + torch.tensor([0.0, 0.0, 10.0], device=x["v"].device)
+    bq, qj, v = x["base_quat"], x["qj"], x["v"]
+    zeros_tau, zeros_f = torch.zeros_like(x["tau"]), torch.zeros_like(x["f_ext"])
+    payload = torch.zeros_like(x["payload"])
+
+    def energy(bp, bq, qj, v):
+        bs = dynamics.body_state(model, bp, bq, qj, v)
+        mm = dynamics.mass_matrix(model, bs, payload)
+        T = 0.5 * torch.einsum("ni,nij,nj->n", v, mm.M, v)
+        return T + torch.sum(mm.mass * GRAVITY * bs.fk.com_w[..., 2], dim=1), bs, mm
+
+    e0 = energy(bp, bq, qj, v)[0]
+    for _ in range(100):
+        _, bs, mm = energy(bp, bq, qj, v)
+        qdd = dynamics.forward_dynamics(model, bp, bq, qj, v, zeros_tau, zeros_f,
+                                        x["gravity"], bs, mm)
+        bp, bq, qj, v = dynamics.integrate(bp, bq, qj, v, qdd, 0.005)
+    return float(((energy(bp, bq, qj, v)[0] - e0) / e0.abs()).abs().max())
+
+
+def drop_and_stand(model, n: int, dev, control_type: str, friction,
+                   push_at: int | None = None):
+    """n Go1s dropped from 0.4 m onto ``heightfield.plane_terrain`` and held
+    by ``control_type`` torques (kp 20, kd 0.5) for 150 control steps
+    (4 substeps of 5 ms, contact stiffness 5000 and damping 50), as
+    tests/test_physics.py drops them; ``friction`` per env.  With
+    ``push_at``, the run is copied at that step, the copy pushed sideways at
+    0.5 m/s, and both run on to step 150 side by side.  Returns the final
+    state, the last step's contact report and the copy's lateral travel
+    (None without a push)."""
+    import torch
+
+    from legged_tracking_torch.actuation import actuators
+    from legged_tracking_torch.physics import contact, engine
+    from legged_tracking_torch.terrain import heightfield as hf
+
+    net = actuators.load_actuator_net(device=dev)
+    torque_fn = actuators.make_torque_fn(control_type, net, torch.tensor(GO1_DEFAULT_Q,
+                                                                         device=dev),
+                                         20.0, 0.5, model.dof_effort, randomize_lag=False)
+
+    def world(fr):
+        m = fr.shape[0]
+        terrain = hf.plane_terrain(m, device=dev)
+        z = torch.zeros(m, device=dev)
+        params = engine.PhysParams(
+            friction=fr, restitution=z, payload=z, com_offset=torch.zeros(m, 3, device=dev),
+            gravity=torch.tensor([0.0, 0.0, -GRAVITY], device=dev).expand(m, 3).contiguous())
+        return terrain, hf.bf16_table(terrain), params
+
+    def run(state, carry, terrain, table, params, k):
+        aux = None
+        for _ in range(k):
+            win = contact.ContactWindow(table, terrain.env_tile, *hf.contact_window(
+                terrain, state.base_pos[:, :2], 24, 16))
+            state, carry, aux = engine.control_step(
+                model, terrain, win, terrain.env_terrain_origin, state, torque_fn, carry,
+                params, 0.005, 4, 5000.0, 50.0, 80.0, 2.0)
+        return state, carry, aux
+
+    fr = torch.as_tensor(friction, dtype=torch.float32, device=dev).expand(n).contiguous()
+    terrain, table, params = world(fr)
+    ones, zeros = torch.ones(n, 12, device=dev), torch.zeros(n, 12, device=dev)
+    carry = (actuators.init_actuator_state(6, n, device=dev), ones, zeros, ones, ones,
+             zeros.clone())
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev).expand(n, -1)
+    state = engine.PhysState(base_pos=terrain.env_origin + f([0.0, 0.0, 0.4]),
+                             base_quat=f([0.0, 0.0, 0.0, 1.0]).clone(),
+                             qj=f(GO1_DEFAULT_Q).clone(), v=torch.zeros(n, 18, device=dev))
+    if push_at is None:
+        state, _, aux = run(state, carry, terrain, table, params, 150)
+        return state, aux.contact_report, None
+    state, carry, _ = run(state, carry, terrain, table, params, push_at)
+    # the run and its pushed copy side by side, 2n envs; each copy keeps its
+    # place on a grid of 2n origins
+    two = lambda t: torch.cat([t, t])
+    terrain2, table2, params2 = world(two(fr))
+    v = two(state.v)
+    v[n:, 1] = 0.5
+    state = engine.PhysState(base_pos=two(state.base_pos - terrain.env_origin)
+                             + terrain2.env_origin, base_quat=two(state.base_quat),
+                             qj=two(state.qj), v=v)
+    carry = (type(carry[0])(*map(two, carry[0])),) + tuple(map(two, carry[1:]))
+    y0 = state.base_pos[n:, 1].clone()
+    state, _, aux = run(state, carry, terrain2, table2, params2, 150 - push_at)
+    return (engine.PhysState(*(t[:n] for t in state)), aux.contact_report[:n],
+            state.base_pos[n:, 1] - y0)
+
+
+# the anchors' limits: tests/test_physics.py's bars (atol, or the bounds of
+# a range), the friction check's as its ratio
+ANCHOR_LIMITS = {"free_fall_base": 1e-4, "free_fall_joints": 2e-3, "M_asymmetry": 1e-5,
+                 "M_translation_mass": 1e-4, "M_min_eigenvalue": 0.0, "energy_drift": 0.01,
+                 "height": (0.18, 0.34), "speed_P": 0.05, "speed_actuator_net": 1.2,
+                 "weight_rtol": 0.02, "dy_high_friction": 0.15, "dy_ratio": 2.0}
+
+
+def physics_oracle(dev, n: int) -> dict:
+    """The physics-oracle phase's checks at n envs; returns its row, with
+    ``bad`` naming every check that failed."""
+    import torch
+
+    from legged_tracking_torch.physics.model import make_go1_model
+    model = make_go1_model(dev)
+    x_cpu = oracle_inputs(n)
+    x = {k: v.to(dev) for k, v in x_cpu.items()}
+    dense = dense_oracle(model, x)
+    bad = []
+    sparse = {}
+    for k, (err, ratio) in sparse_vs_dense(model, x, dense).items():
+        sparse[k] = {"max_abs_err": err, "ratio_to_bar": ratio, "rtol_atol": SPARSE_BARS[k]}
+        if not ratio <= 1.0:
+            bad.append(f"sparse {k}")
+    m = min(n, ORACLE_CPU_ENVS)
+    ref = dense_oracle(make_go1_model("cpu"), {k: v[:m] for k, v in x_cpu.items()})
+    card_cpu = {}
+    for k, limit in ORACLE_CARD_TOL.items():
+        err = float((dense[k][:m].cpu() - ref[k]).abs().max())
+        card_cpu[k] = {"max_abs_err": err, "limit": limit}
+        if not err <= limit:
+            bad.append(f"card vs CPU {k}")
+
+    lim = ANCHOR_LIMITS
+    anchors = {k: {"value": val, "limit": lim[k]}
+               for k, val in anchor_free_fall(model, x).items()}
+    anchors["energy_drift"] = {"value": anchor_energy(model, x), "limit": lim["energy_drift"]}
+    bad += [k for k, a in anchors.items()
+            if not (a["value"] > 0.0 if k == "M_min_eigenvalue" else a["value"] <= a["limit"])]
+    weight = GO1_MASS * GRAVITY
+    high = torch.arange(n, device=dev) < n // 2
+    for control, friction, push in (("P", torch.where(high, 1.5, 0.0), 100),
+                                    ("actuator_net", 1.0, None)):
+        s, report, dy = drop_and_stand(model, n, dev, control, friction, push_at=push)
+        h = s.base_pos[:, 2]
+        fz = report[..., 2].sum(dim=1)
+        a = {"height": {"value": [float(h.min()), float(h.max())], "limit": lim["height"]},
+             "speed": {"value": float(s.v.abs().max()), "limit": lim[f"speed_{control}"]},
+             "weight_rel_err": {"value": float(((fz - weight) / weight).abs().max()),
+                                "limit": lim["weight_rtol"]},
+             "finite": {"value": bool(torch.isfinite(s.base_pos).all()
+                                      and torch.isfinite(s.v).all()), "limit": True}}
+        ok = {"height": lim["height"][0] < a["height"]["value"][0]
+              and a["height"]["value"][1] < lim["height"][1],
+              "speed": a["speed"]["value"] < a["speed"]["limit"],
+              "weight_rel_err": a["weight_rel_err"]["value"] <= lim["weight_rtol"],
+              "finite": a["finite"]["value"]}
+        if dy is not None:
+            dy_high, dy_zero = float(dy[high].max()), float(dy[~high].min())
+            a["dy_high_friction"] = {"value": dy_high, "limit": lim["dy_high_friction"]}
+            a["dy_zero_over_high"] = {"value": dy_zero / dy_high, "limit": lim["dy_ratio"]}
+            ok["dy_high_friction"] = dy_high < lim["dy_high_friction"]
+            ok["dy_zero_over_high"] = dy_zero > lim["dy_ratio"] * dy_high
+        anchors.update({f"{control}_{k}": v for k, v in a.items()})
+        bad += [f"{control} {k}" for k, good in ok.items() if not good]
+    return {"envs": n, "sparse_vs_dense": sparse, "card_vs_cpu": card_cpu,
+            "anchors": anchors, "bad": bad}
+
+
+def phase_physics_oracle(dev, card_line: str):
+    """The sparse engine against the dense oracle on the card, the dense
+    oracle on the card against the CPU, and the physical anchors, at the
+    bench's 4096 envs."""
+    t0 = time.perf_counter()
+    row = physics_oracle(dev, NUM_ENVS)
+    emit({"phase": "physics_oracle", "ok": not row["bad"], "card": card_line, **row,
+          "seconds": time.perf_counter() - t0})
+    if row["bad"]:
+        raise AssertionError(f"physics-oracle checks failed: {row['bad']}")
 
 
 def phase_rollout(dev, card_line: str, profile_dir: str | None):
@@ -1988,6 +2303,7 @@ def main(argv=None) -> int:
     timed("build", phase_build, card_line)
     rows = timed("kernels", phase_kernels, dev, card_line)
     timed("reference", phase_reference, dev, card_line)
+    timed("physics_oracle", phase_physics_oracle, dev, card_line)
     by_path = {"rollout": timed("rollout", phase_rollout, dev, card_line, args.profile)}
     timed("update_reference", phase_update_reference, dev, card_line)
     timed("cnn_update_reference", phase_cnn_update_reference, dev, card_line)

@@ -15,6 +15,7 @@ import torch
 
 from ..terrain.heightfield import TerrainArrays, sample_window_bilinear
 from .dynamics import BodyState, _mat3_vec
+from .kinematics import _skew
 from .model import Go1Model
 
 # PhysX bounce_threshold_velocity (reference sim cfg :369): separations
@@ -42,6 +43,25 @@ class ContactWindow(NamedTuple):
 def _cross(a, b):
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def apparent_masses(model: Go1Model, bs, mm) -> torch.Tensor:
+    """Per-sphere apparent inverse-mass blocks W = J_p M^-1 J_p^T (N, ns, 3, 3)
+    from the dense oracle (``dynamics.body_state``, ``dynamics.mass_matrix``).
+    The engine takes W from the sparse factorization
+    (``sparse.apparent_masses``); this is what that is held to."""
+    f = bs.fk
+    N = f.p.shape[0]
+    sb = model.sphere_body
+    ns = sb.shape[0]
+    p_s = f.p[:, sb] + _mat3_vec(f.R[:, sb], model.sphere_offset)      # (N, ns, 3)
+    # point Jacobian per sphere: joint columns mask * a_k x (p_s - anchor_k),
+    # base columns [I | -skew(p_s - p0)]
+    r_anchor = p_s[:, :, None, :] - f.anchor_w[:, None, :, :]          # (N, ns, nd, 3)
+    Jj = _cross(f.axis_w[:, None], r_anchor) * model.sphere_ancestor_mask[None, :, :, None]
+    eye = torch.eye(3, dtype=p_s.dtype, device=p_s.device).expand(N, ns, 3, 3)
+    Jp = torch.cat([eye, -_skew(p_s - f.p[:, :1]), Jj.transpose(2, 3)], dim=3)  # (N, ns, 3, nv)
+    return torch.matmul(torch.matmul(Jp, mm.Minv[:, None]), Jp.transpose(2, 3))
 
 
 def _quadform(W, v):

@@ -1,11 +1,22 @@
-"""Shared rigid-body pieces of the Go1 dynamics (port of ``physics/dynamics.py``).
+"""Rigid-body dynamics of the Go1 (port of ``physics/dynamics.py``).
 
 Generalized coordinates, batched over a leading env dimension N:
     q  = (base_pos (N,3), base_quat (N,4) xyzw, qj (N,12))
     v  = [base lin vel (world), base ang vel (world), joint rates]  (N,18)
 
-Only the pieces the arrow-structure solver of ``sparse.py`` uses are ported;
-the dense mass-matrix path of the JAX package is left out.
+Two formulations.  The engine steps with the arrow-structure solver of
+``sparse.py``, which uses the shared pieces at the top of this module.  The
+dense composite formulation below it is the physics layer's oracle:
+
+    M(q)   = sum_i  J_i^T  diag(I_i^w, m_i 1)  J_i            (18x18)
+    bias   = sum_i  J_i^T  [ I_i^w a^vp_w,i + w_i x I_i^w w_i ;  m_i a^vp_u,i ]
+    M qdd  = tau_gen + Q_ext + Q_gravity - bias
+
+with the body Jacobians materialized, an explicit Gauss-Jordan inverse of M,
+and the velocity-product accelerations (J̇ v) from one ``torch.func.jvp``
+through the body-velocity map.  Nothing on the engine's path calls it; the
+tests and ``chip_smoke.py``'s physics-oracle phase hold the sparse engine
+and the physical anchors (free fall, total mass, energy) to it.
 """
 
 from __future__ import annotations
@@ -16,6 +27,8 @@ import torch
 
 from ..utils import quat
 from . import kinematics
+
+NV = 18  # 6 base + 12 joints
 
 
 def _mat3_mul(A, B):
@@ -65,3 +78,87 @@ def integrate(base_pos, base_quat, qj, v, qdd, dt):
     base_quat_new = quat.quat_integrate(base_quat, v_new[:, 3:6], dt)
     qj_new = qj + v_new[:, 6:] * dt
     return base_pos_new, base_quat_new, qj_new, v_new
+
+
+# ------------------------------------------------------------------ the dense oracle
+class DenseBodyState(NamedTuple):
+    """The JAX package's ``dynamics.BodyState``: body velocities with the
+    Jacobians J that produced them (the engine's ``BodyState`` has no J)."""
+    fk: kinematics.FK
+    J: torch.Tensor          # (N, nb, 6, NV)
+    omega: torch.Tensor      # (N, nb, 3) world angular velocities
+    u: torch.Tensor          # (N, nb, 3) world COM linear velocities
+
+
+def _body_vel6(model, base_pos, base_quat, qj, v, com_offset=None):
+    """Body spatial velocities J v, (N, nb, 6) [angular; linear]."""
+    f = kinematics.fk(model, base_pos, base_quat, qj, com_offset)
+    J = kinematics.jacobians(model, f, base_pos)
+    return torch.einsum("nbik,nk->nbi", J, v)
+
+
+def body_state(model, base_pos, base_quat, qj, v, com_offset=None) -> DenseBodyState:
+    f = kinematics.fk(model, base_pos, base_quat, qj, com_offset)
+    J = kinematics.jacobians(model, f, base_pos)
+    vel6 = torch.einsum("nbik,nk->nbi", J, v)
+    return DenseBodyState(fk=f, J=J, omega=vel6[..., :3], u=vel6[..., 3:])
+
+
+class MassMatrix(NamedTuple):
+    M: torch.Tensor        # (N, NV, NV)
+    Minv: torch.Tensor     # (N, NV, NV) explicit inverse (spd_inverse)
+    J: torch.Tensor        # (N, nb, 6, NV) Jacobians, base-COM shift applied
+    mass: torch.Tensor     # (N, nb) with payload applied
+    Iw: torch.Tensor       # (N, nb, 3, 3) world-frame inertias
+
+
+def mass_matrix(model, bs: DenseBodyState, payload) -> MassMatrix:
+    """Composite mass matrix M = Jw^T Iw Jw + sum m Jv^T Jv + 1e-6 I and its
+    explicit inverse.  payload (N,) is added to the base mass.  The base COM
+    shift is folded into FK, so ``bs.J`` already carries the shifted arm (the
+    JAX function's ``com_offset`` and ``base_pos`` arguments are unused)."""
+    f, J = bs.fk, bs.J
+    N = J.shape[0]
+    mass = torch.cat([(model.mass[0] + payload)[:, None],
+                      model.mass[1:].expand(N, -1)], dim=1)      # (N, nb)
+    Iw = _world_inertia(f.R, model.inertia)                    # (N, nb, 3, 3)
+    Jw, Jv = J[:, :, :3], J[:, :, 3:6]
+    Mw = torch.einsum("nbir,nbij,nbjs->nrs", Jw, Iw, Jw)
+    Mv = torch.einsum("nb,nbir,nbis->nrs", mass, Jv, Jv)
+    M = Mw + Mv + torch.eye(NV, dtype=J.dtype, device=J.device) * 1e-6
+    return MassMatrix(M=M, Minv=spd_inverse(M), J=J, mass=mass, Iw=Iw)
+
+
+def refresh_mass_matrix(model, mm0: MassMatrix, bs: DenseBodyState) -> MassMatrix:
+    """The configuration-dependent pieces (J, Iw) of a later substep, with
+    M and M^-1 kept from the control step's first substep."""
+    return mm0._replace(J=bs.J, Iw=_world_inertia(bs.fk.R, model.inertia))
+
+
+def forward_dynamics(model, base_pos, base_quat, qj, v, tau_j, f_ext, gravity,
+                     bs: DenseBodyState, mm: MassMatrix, com_offset=None) -> torch.Tensor:
+    """Generalized accelerations (N, NV) = M^-1 rhs.  f_ext (N, nb, 6) world
+    wrench [torque; force] at each body COM; gravity (N, 3)."""
+    J, mass, Iw = mm.J, mm.mass, mm.Iw
+
+    # velocity-product accelerations via jvp through the body-velocity map
+    _, a_vp = torch.func.jvp(
+        lambda bp, bq, qq: _body_vel6(model, bp, bq, qq, v, com_offset),
+        (base_pos, base_quat, qj),
+        (v[:, :3], quat_derivative(base_quat, v[:, 3:6]), v[:, 6:]))   # (N, nb, 6)
+    alpha_vp, acc_vp = a_vp[..., :3], a_vp[..., 3:]
+
+    omega = bs.omega
+    n_bias = _mat3_vec(Iw, alpha_vp) + torch.linalg.cross(omega, _mat3_vec(Iw, omega), dim=-1)
+    f_bias = mass[..., None] * acc_vp
+    Jw, Jv = J[:, :, :3], J[:, :, 3:6]
+    bias = torch.einsum("nbik,nbi->nk", Jw, n_bias) + torch.einsum("nbik,nbi->nk", Jv, f_bias)
+
+    # gravity + external wrenches
+    Q_grav = torch.einsum("nbik,nbi->nk", Jv, mass[..., None] * gravity[:, None, :])
+    Q_ext = (torch.einsum("nbik,nbi->nk", Jw, f_ext[..., :3])
+             + torch.einsum("nbik,nbi->nk", Jv, f_ext[..., 3:]))
+
+    tau_gen = torch.cat([torch.zeros_like(tau_j[:, :6]), tau_j], dim=1)
+    rhs = tau_gen + Q_grav + Q_ext - bias
+    return torch.matmul(mm.Minv, rhs[..., None])[..., 0]

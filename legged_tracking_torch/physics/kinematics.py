@@ -1,4 +1,5 @@
-"""Forward kinematics for the Go1 tree (port of ``physics/kinematics.py``).
+"""Forward kinematics and world-frame Jacobians for the Go1 tree (port of
+``physics/kinematics.py``).
 
 Batched over a leading env dimension N (the JAX function is single-env and
 vmapped).  The tree has exactly 3 joint levels below the floating base (hips,
@@ -69,6 +70,32 @@ def fk(model: Go1Model, base_pos, base_quat, qj, base_com_offset=None) -> FK:
     axis_w = torch.einsum("nbij,bj->nbi", R[:, 1:], model.joint_axis[1:])  # (N,12,3)
     anchor_w = p[:, 1:]
     return FK(R=R, p=p, com_w=com_w, axis_w=axis_w, anchor_w=anchor_w)
+
+
+def jacobians(model: Go1Model, f: FK, base_pos) -> torch.Tensor:
+    """World-frame 6D Jacobians at each body's COM, (N, nb, 6, 6+nd).
+
+    Rows 0:3 angular, 3:6 linear; columns 0:3 base linear velocity (world),
+    3:6 base angular velocity (world), 6: joint rates, so that the body
+    spatial velocity [w_i; u_i] = J_i @ v.  Only the dense oracle
+    (``dynamics.body_state``) builds them; the engine's sparse path never
+    materializes J."""
+    N = base_pos.shape[0]
+    nb = model.num_bodies
+    mask = model.ancestor_mask                                   # (nb, nd)
+    eye = torch.eye(3, dtype=base_pos.dtype, device=base_pos.device).expand(N, nb, 3, 3)
+
+    # angular rows: d w_i / d w_base = I, joint columns the ancestor axes
+    Jw_joint = f.axis_w.transpose(1, 2)[:, None] * mask[None, :, None, :]  # (N, nb, 3, nd)
+
+    # linear rows: d u_i / d w_base = -skew(c_i - p_base), joint columns a_j x (c_i - anchor_j)
+    Jv_wbase = -_skew(f.com_w - base_pos[:, None])
+    r_joint = f.com_w[:, :, None, :] - f.anchor_w[:, None, :, :]          # (N, nb, nd, 3)
+    axes = f.axis_w[:, None].expand_as(r_joint)
+    Jv_joint = torch.linalg.cross(axes, r_joint, dim=-1) * mask[None, :, :, None]
+    J_ang = torch.cat([torch.zeros_like(eye), eye, Jw_joint], dim=3)
+    J_lin = torch.cat([eye, Jv_wbase, Jv_joint.transpose(2, 3)], dim=3)
+    return torch.cat([J_ang, J_lin], dim=2)
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:

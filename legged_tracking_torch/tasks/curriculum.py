@@ -1,4 +1,8 @@
-"""Grid-bin command curriculum on the device (port of ``tasks/curriculum.py``).
+"""Grid-bin command curricula (port of ``tasks/curriculum.py``).
+
+:class:`HostCurriculum` and :class:`HostRewardThresholdCurriculum` are numpy
+copies of the JAX package's host ports of the reference ``Curriculum`` and
+``RewardThresholdCurriculum``, for host tooling and tests.
 
 :class:`DeviceCurriculum` is the JAX package's on-device form of the
 reference's ``RewardThresholdCurriculum`` (go1_gym/envs/base/curriculum.py:
@@ -43,6 +47,73 @@ def neighbour_table(grid, local_range) -> np.ndarray:
         grid[None, :, :] >= grid[:, None, :] - lr[None, None, :],
         grid[None, :, :] <= grid[:, None, :] + lr[None, None, :],
     ).all(axis=2)
+
+
+class HostCurriculum:
+    """Numpy parity port of the reference ``Curriculum`` (go1_gym/envs/base/
+    curriculum.py:17-89), for host tooling and tests; a copy of the JAX
+    package's, bitwise with it on one seed (``np.random.RandomState``)."""
+
+    def __init__(self, seed, **key_ranges):
+        self.rng = np.random.RandomState(seed)
+        self.keys = list(key_ranges.keys())
+        self.grid, self.bin_sizes = _make_grid(list(key_ranges.values()))
+        self.lows = np.array([r[0] for r in key_ranges.values()])
+        self.highs = np.array([r[1] for r in key_ranges.values()])
+        self.weights = np.zeros(self.grid.shape[0])
+        self.indices = np.arange(self.grid.shape[0])
+
+    def __len__(self):
+        return self.grid.shape[0]
+
+    def set_to(self, low, high, value=1.0):
+        inds = np.logical_and(self.grid >= low[None, :],
+                              self.grid <= high[None, :]).all(axis=1)
+        assert inds.any(), "empty initialization domain"
+        self.weights[inds] = value
+
+    def sample_bins(self, batch_size, low=None, high=None):
+        w = self.weights
+        if low is not None and high is not None:
+            valid = np.logical_and(self.grid >= low[None, :],
+                                   self.grid <= high[None, :]).all(axis=1)
+            w = np.where(valid, w, 0.0)
+        inds = self.rng.choice(self.indices, batch_size, p=w / w.sum())
+        return self.grid[inds], inds
+
+    def sample(self, batch_size, low=None, high=None):
+        centroids, inds = self.sample_bins(batch_size, low=low, high=high)
+        samples = np.stack([
+            self.rng.uniform(c + self.bin_sizes / 2, c - self.bin_sizes / 2)
+            for c in centroids])
+        return samples, inds
+
+
+class HostRewardThresholdCurriculum(HostCurriculum):
+    """Numpy parity port of the reference ``RewardThresholdCurriculum``
+    (:113-159): each success bumps its bin and the bins within
+    ``local_range`` by 0.2, one success after another, clipped to [0, 1]."""
+
+    def get_local_bins(self, bin_inds, ranges=0.1):
+        if isinstance(ranges, float):
+            ranges = np.ones(self.grid.shape[1]) * ranges
+        bin_inds = np.asarray(bin_inds).reshape(-1)
+        near = np.logical_and(
+            self.grid[None, :, :] >= self.grid[bin_inds][:, None, :] - ranges[None, None, :],
+            self.grid[None, :, :] <= self.grid[bin_inds][:, None, :] + ranges[None, None, :],
+        ).all(axis=2)
+        return near  # (len(bin_inds), n_bins)
+
+    def update(self, bin_inds, task_rewards, success_thresholds, local_range=0.5):
+        if len(success_thresholds) == 0:
+            return
+        is_success = np.ones(len(bin_inds), dtype=bool)
+        for r, t in zip(task_rewards, success_thresholds):
+            is_success &= np.asarray(r) > t
+        self.weights[bin_inds[is_success]] = np.clip(
+            self.weights[bin_inds[is_success]] + 0.2, 0, 1)
+        for near in self.get_local_bins(bin_inds[is_success], ranges=local_range):
+            self.weights[near] = np.clip(self.weights[near] + 0.2, 0, 1)
 
 
 class DeviceCurriculum:

@@ -410,12 +410,13 @@ def train_rank(args):
 
 
 def parse_args(argv=None):
-    """The flags of ``scripts/train.py`` that the ported path reads, with
-    ``--device`` for ``--cpu``."""
+    """The flags of ``scripts/train.py``, with ``--device`` for ``--cpu``
+    and ``--dist_backend`` for the collective backend."""
     p = argparse.ArgumentParser()
     p.add_argument("--name", type=str, default="trajectory_tracking")
     p.add_argument("--logdir", type=str, default=None)
     p.add_argument("--wandb", action="store_true")
+    p.add_argument("--no_wandb", action="store_true")  # a no-op: only --wandb logs there
     p.add_argument("--resume", type=str, default="")
     p.add_argument("--strategy", default="vel", choices=["e2e", "pms", "vel", "goal"],
                    help="'goal' = the published run-20230904 recipe "

@@ -12,6 +12,21 @@ def get_scale_shift(rng):
     return scale, shift
 
 
+def rand_uniform(generator: torch.Generator, lo, hi, shape) -> torch.Tensor:
+    """Uniform draws in [lo, hi) of ``shape`` from ``generator``, on the
+    generator's device (the JAX package draws from a key)."""
+    return lo + (hi - lo) * torch.rand(shape, generator=generator, device=generator.device)
+
+
+def rand_sqrt_uniform(generator: torch.Generator, lo, hi, shape) -> torch.Tensor:
+    """sqrt-shaped distribution in [lo, hi] (math_utils.py:27-32): a uniform
+    r in [-1, 1) mapped to sign(r) sqrt(|r|), then to [lo, hi]."""
+    r = rand_uniform(generator, -1.0, 1.0, shape)
+    r = torch.where(r < 0.0, -torch.sqrt(-r), torch.sqrt(r))
+    r = (r + 1.0) / 2.0
+    return (hi - lo) * r + lo
+
+
 def norm(x):
     """``jnp.linalg.norm`` over the last axis as XLA computes it: the root
     of the sum of squares."""

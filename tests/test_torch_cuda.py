@@ -693,3 +693,16 @@ def test_policy_runtime_on_cuda_without_a_card_raises(tmp_path):
         PolicyRuntime(path, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PolicyRuntime(path)
+
+
+@pytest.mark.cuda
+def test_physics_oracle_on_card(cuda_device):
+    """chip_smoke.py's physics-oracle phase at 512 envs: the sparse engine
+    within the JAX package's bars of the dense oracle on the card, the
+    dense oracle on the card within its limits of the CPU, and the physical
+    anchors (free fall, M positive definite with the total mass, energy,
+    drop-and-stand at the Go1's weight for P and the actuator net, friction
+    anisotropy)."""
+    import chip_smoke
+    row = chip_smoke.physics_oracle(cuda_device, 512)
+    assert not row["bad"], row

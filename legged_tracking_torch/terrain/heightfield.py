@@ -13,6 +13,10 @@ needs, so this module gathers straight from the bf16 tile table.  It keeps
 every rounding the patch path makes: the window clamps, the bf16 weights and
 the bf16 stage-1 sums.  Each f32 sum then adds at most two exact products of
 bf16 values, so the result equals the JAX CPU result bit for bit.
+
+``sample_height_bilinear`` is the flat float32 sampler the JAX package holds
+its patch path to.  Here it is the oracle of the contact sampler and runs on
+no path of the program.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.math import fma
 
 
 class TerrainArrays(NamedTuple):
@@ -143,6 +149,59 @@ def sample_window_bilinear(table, env_tile, xs, ys, PX: int, PY: int, hs: float,
     dhdx = Ax[..., 0] * wy[:, :, None, 0] + Ax[..., 1] * wy[:, :, None, 1]
     dhdy = A[..., 0] * dw[0] + A[..., 1] * dw[1]
     return height, torch.stack([dhdx, dhdy], dim=-1)
+
+
+def _gather_layers(tiles: torch.Tensor, env_tile, xi, yi) -> torch.Tensor:
+    """Both layers at integer cell coords, as float32.
+
+    tiles (T, 2, h, w) of any dtype; env_tile (...,) broadcastable against
+    the leading dims of xi / yi (..., P).  Returns (..., P, 2) [ceiling,
+    floor].  One flat-index gather per layer: per-point tile copies would
+    cost O(N * P * h * w) memory (24 GB at 4096 envs)."""
+    L, h, w = tiles.shape[1], tiles.shape[2], tiles.shape[3]
+    flat = tiles.reshape(-1)
+    base = env_tile.long()[..., None] * (L * h * w) + xi.long() * w + yi.long()
+    return torch.stack([flat[base], flat[base + h * w]], dim=-1).float()
+
+
+def sample_height_bilinear(terrain: TerrainArrays, env_tile, env_terrain_origin, points_xy):
+    """Bilinear floor/ceiling heights + gradients at world-frame xy points,
+    in float32 on the four cells around each point: no window, no bf16
+    stage.  The flat oracle that the contact sampler
+    (:func:`sample_window_bilinear`) is held to; no path of the program
+    calls it.
+
+    The arithmetic is the compiled JAX function's: ``/ hs`` is a multiply by
+    the float32 reciprocal (:func:`to_cells`) and each ``a * wa + b * wb``
+    one fused multiply-add, ``fma(a, wa, b * wb)``, which matches it bit for
+    bit on the CPU.
+
+    env_tile (...,); env_terrain_origin (..., 3); points_xy (..., P, 2)
+    world.  Returns heights (..., P, 2) [ceiling, floor] and grads
+    (..., P, 2, 2) d h / d xy.
+    """
+    tiles = terrain.tiles
+    h, w = tiles.shape[2], tiles.shape[3]
+    hs = terrain.horizontal_scale
+    local = to_cells(points_xy - env_terrain_origin[..., None, :2], hs)
+    x = torch.clamp(local[..., 0], 0.0, h - 1.001)
+    y = torch.clamp(local[..., 1], 0.0, w - 1.001)
+    x0 = torch.floor(x).to(torch.int32)
+    y0 = torch.floor(y).to(torch.int32)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+
+    h00 = _gather_layers(tiles, env_tile, x0, y0)
+    h10 = _gather_layers(tiles, env_tile, x0 + 1, y0)
+    h01 = _gather_layers(tiles, env_tile, x0, y0 + 1)
+    h11 = _gather_layers(tiles, env_tile, x0 + 1, y0 + 1)
+
+    hx0 = fma(h00, 1 - fy, h01 * fy)
+    hx1 = fma(h10, 1 - fy, h11 * fy)
+    height = fma(hx0, 1 - fx, hx1 * fx)                      # (..., P, 2)
+    dhdx = to_cells(hx1 - hx0, hs)
+    dhdy = to_cells(fma(h01 - h00, 1 - fx, (h11 - h10) * fx), hs)
+    return height, torch.stack([dhdx, dhdy], dim=-1)          # (..., P, 2, 2)
 
 
 def sample_height_nearest(terrain: TerrainArrays, env_tile, env_terrain_origin, points_xy):

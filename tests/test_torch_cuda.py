@@ -699,10 +699,41 @@ def test_policy_runtime_on_cuda_without_a_card_raises(tmp_path):
 def test_physics_oracle_on_card(cuda_device):
     """chip_smoke.py's physics-oracle phase at 512 envs: the sparse engine
     within the JAX package's bars of the dense oracle on the card, the
-    dense oracle on the card within its limits of the CPU, and the physical
+    dense oracle on the card within its limits of the CPU, the physical
     anchors (free fall, M positive definite with the total mass, energy,
     drop-and-stand at the Go1's weight for P and the actuator net, friction
-    anisotropy)."""
+    anisotropy), the calibration anchors (feet-only stance, the thigh step,
+    the ji22 gate's shares) and the flat sampler (against the contact
+    sampler, and card against CPU)."""
     import chip_smoke
     row = chip_smoke.physics_oracle(cuda_device, 512)
     assert not row["bad"], row
+
+
+@pytest.mark.cuda
+def test_flat_sampler_and_stance_on_card(cuda_device):
+    """At 512 envs on the card (the bench's tiles, 16 x 16 of them at this
+    width): the contact sampler within the worst case of its bf16 stages of
+    the flat float32 sampler on the bf16-quantized tiles (on the CPU the
+    errors read 4.9e-3 and 5.2e-2, one gradient past the JAX package's 5e-2
+    bar, as its own patch path is), both samplers on the card within their
+    limits of the CPU, and feet-only contact at calm P stance after 200
+    steps (tests/test_calibration.py's bounds)."""
+    import chip_smoke
+    from legged_tracking_torch.physics.model import make_go1_model
+
+    n = 512
+    terrain = chip_smoke.bench_terrain(n, cuda_device)
+    fw = chip_smoke.flat_vs_window(terrain)
+    bound = chip_smoke.bf16_stage_bounds(fw["run"][0].tiles, terrain.horizontal_scale)
+    for k in chip_smoke.FLAT_BARS:
+        assert fw[k] <= bound[k], (k, fw[k], bound[k])
+    cc = chip_smoke.samplers_card_vs_cpu(*fw["run"], chip_smoke.FLAT_CPU_ENVS)
+    for sampler, errs in cc.items():
+        for k, limit in chip_smoke.FLAT_CARD_TOL.items():
+            assert errs[k] <= limit, (sampler, k, errs[k])
+    s, report, _ = chip_smoke.drop_and_stand(make_go1_model(cuda_device), n, cuda_device, "P",
+                                             1.0, steps=200)
+    readings = chip_smoke.feet_only(s, report)
+    _, failed = chip_smoke.calibration_checks(readings)
+    assert failed == [], readings

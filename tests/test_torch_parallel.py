@@ -43,8 +43,11 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def make_env(shard=None):
-    """tests/test_distributed.py's 8-env plane env (xy commands, P control)."""
+def make_env(shard=None, mixed_signs=False):
+    """tests/test_distributed.py's 8-env plane env (xy commands, P control);
+    ``mixed_signs`` adds a term that takes both signs across envs,
+    ``exploration_lin`` under ``lin_vel_form="prod"`` (the cosine of the
+    base velocity to the goal direction)."""
     cfg = config_go1(Cfg())
     cfg.env.num_envs = N
     cfg.terrain.mesh_type = "plane"
@@ -52,6 +55,9 @@ def make_env(shard=None):
     cfg.control.control_type = "P"
     cfg.env.episode_length_s = 2.0
     cfg.control.decimation = 2
+    if mixed_signs:
+        cfg.rewards.lin_vel_form = "prod"
+        cfg.reward_scales.set("exploration_lin", 1.0)
     return LeggedEnv(cfg, device="cpu", shard=shard)
 
 
@@ -87,6 +93,28 @@ def rollout(env, steps=3):
     return out, state
 
 
+# each global env's base speed along (+) or against (-) its goal direction:
+# rank 0's envs all toward the goal, rank 1's one toward and three away, so
+# that exploration_lin sums to about +4 on rank 0, -2 on rank 1, +2 in all
+SPLIT_SPEED = (1.0, 1.0, 1.0, 1.0, 1.0, -1.0, -1.0, -1.0)
+
+
+def sign_split_step(env):
+    """One zero-action step from a seeded reset with the bases moving at
+    SPLIT_SPEED m/s: the episode sums it adds, (n, K + 3), each term's
+    reward, then total, total_pos and total_neg."""
+    env.generator.manual_seed(3)
+    state = env.reset_fn(False)
+    target = env._select_waypoint(state.trajectories, state.curr_pose_index)
+    d = target[:, :2] - state.phys.base_pos[:, :2]
+    speed = torch.tensor(SPLIT_SPEED)[env.env_ids()]
+    v = state.phys.v.clone()
+    v[:, :2] = d / torch.linalg.vector_norm(d, dim=1, keepdim=True) * speed[:, None]
+    state = state._replace(phys=state.phys._replace(v=v))
+    _, out = env.step_fn(state, torch.zeros(env.num_envs, 12))
+    return out.info["episode_sums"]
+
+
 def train(env, windowed=False):
     """Two PPO train iterations (4 steps, 2 x 2 minibatches) from a seeded
     policy and reset, histories stored or ``windowed``; the parameters after
@@ -118,12 +146,13 @@ def rank_work(outdir):
     rank, world = dist.get_rank(), dist.get_world_size()
     shard = Shard(rank, world, N)
     steps, _ = rollout(make_env(shard))
+    sign_split = sign_split_step(make_env(shard, mixed_signs=True))
     _, vstate = rollout(velocity_env(shard), steps=8)
     params, metrics = train(make_env(shard))
     params_w, metrics_w = train(make_env(shard), windowed=True)
     runner = small_runner(make_env(), os.path.join(outdir, f"run{rank}"), distributed=True)
     runner.learn(2, verbose=False)
-    res = {"rollout": steps, "params": params, "metrics": metrics,
+    res = {"rollout": steps, "sign_split": sign_split, "params": params, "metrics": metrics,
            "params_windowed": params_w, "metrics_windowed": metrics_w,
            "runner_params": {k: v.detach().clone() for k, v in
                              runner.train_state.params.items()},
@@ -223,6 +252,27 @@ def test_sharded_rollout_matches_one_rank(ranks):
             got = cat([r["rollout"][t][k] for r in res])
             np.testing.assert_allclose(got.numpy(), ref[k].numpy(), atol=1e-5,
                                        err_msg=f"step {t} {k}")
+
+
+def test_sharded_reward_sign_split_is_global(ranks):
+    """The reward terms' sign split (rew_pos / rew_neg) takes each term's
+    sign over all envs of all ranks: with exploration_lin summing positive
+    on rank 0's envs and negative on rank 1's, the two ranks' total_pos and
+    total_neg columns are the rows of one rank's; a split by each rank's
+    own sums would move rank 1's exploration_lin into total_neg."""
+    _, res = ranks
+    env = make_env(mixed_signs=True)
+    whole = sign_split_step(env)
+    k, K = env.reward_names.index("exploration_lin"), len(env.reward_names)
+    term = whole[:, k]
+    assert term[:4].sum() > 0 and term[4:].sum() < 0 and term.sum() > 0, term
+    got = cat([r["sign_split"] for r in res])
+    np.testing.assert_allclose(got[:, -2:].numpy(), whole[:, -2:].numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[:, :K].numpy(), whole[:, :K].numpy(), atol=1e-5)
+    rews = whole[4:, :K]
+    rank_pos = torch.sum(rews * (rews.sum(dim=0) >= 0.0), dim=-1)
+    # by the term's size, 1e-2 (its scale times dt), a thousand times the bar
+    assert (rank_pos - whole[4:, -2]).abs().max() > 1e-3
 
 
 def test_sharded_velocity_curriculum_matches_one_rank(ranks):

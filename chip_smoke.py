@@ -1,8 +1,10 @@
-"""Smoke run of the PyTorch/CUDA port (``legged_tracking_torch``) on one card.
+"""Smoke run of the PyTorch/CUDA port (``legged_tracking_torch``) on one card,
+or across K cards of one host with ``--cards K``.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --cards 4
 
-Phases, each printing one JSON line:
+Phases of the one-card run, each printing one JSON line:
 
 1. build: compiles every CUDA kernel of the port with nvcc (one process
    per source, all at once) and prints the build seconds and ptxas report.
@@ -128,7 +130,8 @@ Phases, each printing one JSON line:
    configuration of ``tests/test_distributed.py``, 3 env steps and 2
    ``Runner.learn`` iterations (4 steps, 2 x 2 minibatches), run by two
    ranks that share the card over gloo (named; NCCL refuses two ranks on
-   one card, and the machine has one) and by one rank; rollout base
+   one card: NCCL across cards is the ``--cards`` run's) and by one rank;
+   rollout base
    positions and obs within 1e-5, parameters within atol 2e-4 / rtol 2e-3
    (the JAX package's bars), the ranks' parameters equal.
 21. train-dp: the main path over two such ranks: the bench configuration at
@@ -161,15 +164,56 @@ Then each phase's wall seconds and the kernel table (B1's launches on every
 path, eval, actuator-log, data-parallel and windowed paths included, and none on the
 velocity and deploy paths), each as one JSON line, the card's
 name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
-"device": ...}``.  The
-script exits non-zero, without that last line, when CUDA is missing, when
-the port is not beside it, or when any phase fails.  It imports nothing of
-JAX.
+"device": ...}``.
+
+``--cards K`` (K > 1; 4 on a four-card host) drives data parallelism across
+the cards over NCCL, one rank a card, each rank on ``rank_device("cuda")``
+(the card of its local rank), and none of the one-card phases but build and
+train.  It needs K cards and exits 2 naming the count it sees when there
+are fewer; nothing moves to gloo, to fewer ranks or to the CPU.  Phases:
+
+1. build: as above.
+2. kernels-per-card: B1 held bitwise (atol 0) against its plain version on
+   each card, and against the CPU, at the kernels phase's shapes and
+   inputs (made on card 0, copied to each), and its device time on each.
+3. dp-reference-nccl: the dp-reference phase with K NCCL ranks (8 / K
+   envs a rank) against one rank on card 0, at the same bars, every rank's
+   backend NCCL.
+4. train: the one-card train phase, the 1-rank rate both scalings are
+   read against in the same call (the host moves the rate between calls).
+5. train-nccl-weak: the train-dp phase with K NCCL ranks at 4096 envs a
+   card (K x 4096 global): each rank held as the train phase is (B1 97
+   launches, rank 0 the only writer), the ranks' parameter checksums
+   equal; prints the global train env-steps/s over the slowest rank's
+   iterations 2-4, the efficiency (global / (K x the train phase's)), each
+   rank's card, rollout/update split, all-reduce seconds inside and
+   outside the update (CUDA events around each collective) and their
+   share of the update, peak memory and CPU affinity, and the host's CPU
+   count.
+6. train-nccl-strong: the same at the bench's 4096 global envs, 4096 / K a
+   rank (what ``--num_devices K`` does to a run of the bench's width).
+7. entries: ``train``, ``train_hierarchy`` and ``train_velocity_tracking``
+   at ``--num_devices K``, and ``train --distributed`` under ``python -m
+   torch.distributed.run --standalone --nproc_per_node K``, each at its
+   own defaults for 2 iterations, as subprocesses: each exits 0, rank 0
+   alone prints, its ``metrics.jsonl`` counts the global envs, and its
+   checkpoint loads back into the entry's Runner on card 0 (8 envs).
+   B1's launches in these processes are not counted.
+
+Then the phases' seconds, the kernel table (B1 with each card's time, and
+its launches on every rank of the two train phases), every card's name and
+power limit, one a line, and the same last line, whose ``count`` is the
+cards torch sees.
+
+The script exits non-zero, without that last line, when CUDA is missing,
+when the port is not beside it, or when any phase fails.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -189,10 +233,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
+def card(index: int = 0) -> str:
+    """Card ``index``'s name and power limit, as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
+                          "--format=csv,noheader", "-i", str(index)],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -397,20 +441,53 @@ def scan_check(env, dev) -> dict:
             "plain_ms": cuda_ms(lambda: scan.scan_heights_reference(*args), iters=20)[0]}
 
 
+def scan_bound(args) -> dict:
+    """B1's least work on ``args`` and the least time the card could take
+    for it: each input read once, the output written once; of the table,
+    the cells these points touch (both layers)."""
+    import torch
+
+    from legged_tracking_torch.terrain import scan
+
+    table, frames, grid = args[0], args[2], args[3]
+    N, P, L = frames.shape[0], grid.shape[0], table.shape[1]
+    touched = int(torch.unique(scan.scan_cells(*args)).numel())
+    nbytes = (N * 2 * P * 4 + N * 3 * 2 * 4 + N * 4 + P * 2 * 4 + touched * L * 2)
+    ops = N * P * 2 * 4          # per axis: two adds, a subtract, a multiply
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "table_cells_touched": touched, "ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def scan_row(err: float, ms: float, plain_ms: float, bound: dict) -> dict:
+    """B1's entry of the kernel table (its launches filled in at the end)."""
+    return {"name": "scan_heights", "route": "cuda",
+            "source": "legged_tracking_torch/csrc/scan_heights.cu",
+            "replaces": "legged_tracking_tpu/terrain/pallas_scan.py:97",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
+
+
+def bench_scan_args(dev):
+    """B1's arguments at the bench's shapes on ``dev``: :func:`scan_args` of
+    the bench terrain at 4096 envs."""
+    from legged_tracking_torch.terrain import heightfield as hf
+    from legged_tracking_torch.terrain.tunnel import build_terrain
+
+    cfg = bench_cfg(NUM_ENVS)
+    terrain = build_terrain(cfg, NUM_ENVS, cfg.seed, device=dev)
+    return scan_args(terrain, hf.bf16_table(terrain), cfg, dev)
+
+
 def phase_kernels(dev, card_line: str):
     """Kernel B1 against its plain version at the main path's shapes."""
     import torch
 
-    from legged_tracking_torch.terrain import heightfield as hf
     from legged_tracking_torch.terrain import scan
-    from legged_tracking_torch.terrain.tunnel import build_terrain
 
-    n_envs = NUM_ENVS
-    cfg = bench_cfg(n_envs)
-    terrain = build_terrain(cfg, n_envs, cfg.seed, device=dev)
-    table = hf.bf16_table(terrain)
-    args = scan_args(terrain, table, cfg, dev)
-    frames, grid = args[2], args[3]
+    args = bench_scan_args(dev)
+    table, frames, grid = args[0], args[2], args[3]
 
     out = scan.scan_heights(*args)
     torch.cuda.synchronize()
@@ -440,31 +517,66 @@ def phase_kernels(dev, card_line: str):
         shapes.append({"E": E, "blocks": shape[1], "smem": shape[2],
                        "ms": cuda_ms(lambda: scan._launch(*args, shape))[0]})
 
-    # least work: each input read once, the output written once; of the
-    # table, the cells this run's points touch (both layers)
-    L = table.shape[1]
-    touched = int(torch.unique(scan.scan_cells(*args)).numel())
-    nbytes = (N * 2 * P * 4 + N * 3 * 2 * 4 + N * 4 + P * 2 * 4 + touched * L * 2)
-    ops = N * P * 2 * 4          # per axis: two adds, a subtract, a multiply
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    row = {"name": "scan_heights", "route": "cuda",
-           "source": "legged_tracking_torch/csrc/scan_heights.cu",
-           "replaces": "legged_tracking_tpu/terrain/pallas_scan.py:97",
-           "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None}
+    bound = scan_bound(args)
+    row = scan_row(err, ms, plain_ms, bound)
     emit({"phase": "kernels", "ok": True, "card": card_line, "kernel": "scan_heights",
           "shape": {"N": N, "P": P, "table": list(table.shape)}, "max_abs_err": err,
           "max_abs_err_vs_cpu": err_cpu, "ms": ms, "plain_ms": plain_ms,
           "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-          "bytes": nbytes, "table_cells_touched": touched, "ops": ops,
-          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+          "bytes": bound["bytes"], "table_cells_touched": bound["table_cells_touched"],
+          "ops": bound["ops"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
           "bound_share": row["bound_ms"] / ms, "launch_floor_ms": launch_floor_ms,
           "write_floor_ms": write_floor_ms,
           "launch_shape": dict(zip(("E", "blocks", "smem"), chosen)),
           "launch_shapes": shapes, "library_ms": None})
     return [row]
+
+
+def phase_kernels_per_card(cards: list):
+    """Kernel B1 against its plain version on each card (``cards``: their
+    nvidia-smi lines, card k's at index k) at the bench shapes, atol 0, on
+    the card and against the CPU, and its device time there: the kernels
+    phase's inputs, made on card 0 and copied to each card.  Returns B1's
+    kernel-table entry, with card 0's times and every card's."""
+    import torch
+
+    from legged_tracking_torch.terrain import scan
+
+    args0 = bench_scan_args(torch.device("cuda", 0))
+    ref_cpu = scan.scan_heights_reference(*(a.cpu() if torch.is_tensor(a) else a
+                                            for a in args0))
+    per_card = []
+    for k, line in enumerate(cards):
+        dev = torch.device("cuda", k)
+        with torch.cuda.device(dev):
+            args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args0)
+            out = scan.scan_heights(*args)
+            torch.cuda.synchronize(dev)
+            err = float((out - scan.scan_heights_reference(*args)).abs().max())
+            err_cpu = float((out.cpu() - ref_cpu).abs().max())
+            if out.device != dev or err != 0.0 or err_cpu != 0.0:
+                raise AssertionError(f"kernels_per_card: scan_heights on {dev} wrote "
+                                     f"{out.device}, max abs err {err} vs plain on the "
+                                     f"card, {err_cpu} vs the CPU")
+            ms, call_ms = cuda_ms(lambda: scan.scan_heights(*args))
+            plain_ms, _ = cuda_ms(lambda: scan.scan_heights_reference(*args), iters=20)
+            per_card.append({"card_index": k, "card": line, "device": str(out.device),
+                             "launch_shape": list(scan.launch_shape(
+                                 args[2].shape[0], args[3].shape[0],
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)),
+                             "max_abs_err": err, "max_abs_err_vs_cpu": err_cpu,
+                             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms})
+    bound = scan_bound(args0)
+    row = scan_row(max(c["max_abs_err"] for c in per_card), per_card[0]["ms"],
+                   per_card[0]["plain_ms"], bound)
+    row["per_card"] = [{k: c[k] for k in ("card_index", "ms", "plain_ms", "max_abs_err")}
+                       for c in per_card]
+    emit({"phase": "kernels_per_card", "ok": True, "cards": cards, "kernel": "scan_heights",
+          "shape": {"N": args0[2].shape[0], "P": args0[3].shape[0],
+                    "table": list(args0[0].shape)},
+          "bytes": bound["bytes"], "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+          "per_card": per_card})
+    return row
 
 
 class DrawLog:
@@ -1547,11 +1659,12 @@ def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir
     from legged_tracking_torch.learn.actor_critic import ActorCriticCSE
     from legged_tracking_torch.terrain import scan
 
-    torch.cuda.reset_peak_memory_stats()
+    dev = env.device
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     scan.scan_heights.launches = 0
     runner = make_runner(logdir)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     setup_launches = scan.scan_heights.launches
     alg = runner.alg
@@ -1567,11 +1680,11 @@ def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir
 
     def clocked(fn):
         def run(*args, **kwargs):
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(dev)
             before = scan.scan_heights.launches
             t = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(dev)
             timed.append(time.perf_counter() - t)
             launches.append(scan.scan_heights.launches - before)
             return out
@@ -1580,9 +1693,9 @@ def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir
     def evented(name, fn):
         def run(*args, **kwargs):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
+            start.record(torch.cuda.current_stream(dev))
             out = fn(*args, **kwargs)
-            end.record()
+            end.record(torch.cuda.current_stream(dev))
             spans[name].append((start, end))
             return out
         return run
@@ -1628,7 +1741,7 @@ def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir
                                  f"parameters")
     files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
 
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     split = {k: [a.elapsed_time(b) / 1e3 for a, b in v] for k, v in spans.items()}
     # the first iteration carries one-time work (allocator growth, cuBLAS
     # heuristics); the rate is over the rest
@@ -1643,7 +1756,7 @@ def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir
            "update_s_all": split["update"],
            "scan_heights_launches": total, "at_setup": setup_launches,
            "per_iteration": launches,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "logdir_files": files,
            "last": {k: history[-1][k] for k in ("value_loss", "surrogate_loss",
                                                  "adaptation_loss", "kl_mean", "learning_rate",
@@ -1767,8 +1880,9 @@ def phase_train_velocity(dev, card_line: str, profile_dir: str | None, logdir: s
                               "num_commands": env.cfg.commands.num_commands})
 
 
-# data parallelism on one card: two ranks share cuda:0 over gloo (NCCL
-# refuses two ranks on one card, and the machine has one)
+# data parallelism in the default run: two ranks share cuda:0 over gloo
+# (NCCL refuses two ranks on one card); ``--cards K`` runs K NCCL ranks, one
+# a card
 DP_RANKS = 2
 DP_BACKEND = "gloo"
 # the JAX package's sharding-invariance bars (tests/test_distributed.py:53-55,
@@ -1798,16 +1912,17 @@ def dp_reference_run(outdir: str, device: str):
     """One rank's dp-reference work (the whole of it outside a process
     group): 3 env steps of a fixed action from a seeded reset, then
     ``Runner.learn(2)`` (4 steps, 2 x 2 minibatches, seed 7), written to
-    ``outdir/rank<r>.pt``."""
+    ``outdir/rank<r>.pt`` with the rank's device (``rank_device(device)``
+    in a group) and backend."""
     import torch
     import torch.distributed as dist
 
     from legged_tracking_torch.learn.ppo import PPOArgs
     from legged_tracking_torch.learn.runner import Runner, RunnerArgs
-    from legged_tracking_torch.parallel import Shard
+    from legged_tracking_torch.parallel import Shard, rank_device
 
-    dev = torch.device(device)
     group = dist.is_initialized()
+    dev = rank_device(device) if group else torch.device(device)
     rank, world = (dist.get_rank(), dist.get_world_size()) if group else (0, 1)
     env = dp_reference_env(dev, Shard(rank, world, 8) if group else None)
     env.generator.manual_seed(3)
@@ -1823,57 +1938,72 @@ def dp_reference_run(outdir: str, device: str):
                     distributed=group)
     runner.learn(2)
     params = {k: v.detach().cpu() for k, v in runner.train_state.params.items()}
-    torch.save({"steps": steps, "params": params}, os.path.join(outdir, f"rank{rank}.pt"))
+    torch.save({"steps": steps, "params": params, "device": str(dev),
+                "backend": dist.get_backend() if group else None},
+               os.path.join(outdir, f"rank{rank}.pt"))
 
 
-def phase_dp_reference(dev, card_line: str):
+def phase_dp_reference(dev, card_line: str, ranks: int = DP_RANKS, backend: str = DP_BACKEND,
+                       device: str | None = None, phase: str = "dp_reference"):
     """Data parallelism against one rank on the card: the 8-env
-    configuration of tests/test_distributed.py run by two gloo ranks that
-    share the card and by one, held to the JAX package's bars."""
+    configuration of tests/test_distributed.py run by ``ranks`` ranks over
+    ``backend``, each on ``rank_device(device)`` (``device`` defaults to
+    ``dev``, the card two gloo ranks share; ``cuda`` puts each rank on the
+    card of its local rank), and by one rank on ``dev``, held to the JAX
+    package's bars; every rank on the backend named."""
     import torch
 
     from legged_tracking_torch.parallel import launch
 
+    device = device or str(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out:
-        launch(dp_reference_run, DP_RANKS, out, str(dev), backend=DP_BACKEND, device=str(dev))
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(DP_RANKS)]
+        launch(dp_reference_run, ranks, out, device, backend=backend, device=device)
+        res = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(ranks)]
         one_dir = os.path.join(out, "one")
         os.makedirs(one_dir)
         dp_reference_run(one_dir, str(dev))
         one = torch.load(os.path.join(one_dir, "rank0.pt"))
-    rollout = {k: max(float((torch.cat([r["steps"][t][k] for r in ranks]) - s[k]).abs().max())
+    rollout = {k: max(float((torch.cat([r["steps"][t][k] for r in res]) - s[k]).abs().max())
                       for t, s in enumerate(one["steps"]))
                for k in ("base_pos", "obs")}
     # the share of the bar each parameter uses: |a - b| / (atol + rtol |b|)
-    used = {k: float(((ranks[0]["params"][k] - v).abs()
+    used = {k: float(((res[0]["params"][k] - v).abs()
                       / (DP_PARAMS_ATOL + DP_PARAMS_RTOL * v.abs())).max())
             for k, v in one["params"].items()}
-    params_abs = max(float((ranks[0]["params"][k] - v).abs().max())
+    params_abs = max(float((res[0]["params"][k] - v).abs().max())
                      for k, v in one["params"].items())
-    ranks_equal = all(torch.equal(ranks[0]["params"][k], ranks[r]["params"][k])
-                      for k in one["params"] for r in range(1, DP_RANKS))
-    ok = max(rollout.values()) <= DP_ROLLOUT_TOL and max(used.values()) <= 1.0 and ranks_equal
-    emit({"phase": "dp_reference", "ok": ok, "card": card_line, "ranks": DP_RANKS,
-          "backend": DP_BACKEND, "device": str(dev), "envs": 8, "steps": 3, "iterations": 2,
-          "note": "the ranks share one card; NCCL across cards is not exercised on a "
-                  "one-card machine",
-          "rollout_max_abs": rollout, "rollout_tol": DP_ROLLOUT_TOL,
-          "params_max_abs": params_abs, "params_tol": {"atol": DP_PARAMS_ATOL,
-                                                       "rtol": DP_PARAMS_RTOL},
-          "params_share_of_tol": max(used.values()),
-          "worst_leaf": max(used, key=used.get), "ranks_params_equal": ranks_equal})
+    ranks_equal = all(torch.equal(res[0]["params"][k], res[r]["params"][k])
+                      for k in one["params"] for r in range(1, ranks))
+    devices = [r["device"] for r in res]
+    backends = [r["backend"] for r in res]
+    ok = (max(rollout.values()) <= DP_ROLLOUT_TOL and max(used.values()) <= 1.0
+          and ranks_equal and backends == [backend] * ranks)
+    row = {"phase": phase, "ok": ok, "card": card_line, "ranks": ranks, "backend": backend,
+           "device": device, "rank_devices": devices, "rank_backends": backends, "envs": 8,
+           "steps": 3, "iterations": 2}
+    if len(set(devices)) == 1:
+        row["note"] = ("the ranks share one card; NCCL across cards runs in "
+                       "chip_smoke.py --cards 4")
+    row.update({"rollout_max_abs": rollout, "rollout_tol": DP_ROLLOUT_TOL,
+                "params_max_abs": params_abs, "params_tol": {"atol": DP_PARAMS_ATOL,
+                                                             "rtol": DP_PARAMS_RTOL},
+                "params_share_of_tol": max(used.values()),
+                "worst_leaf": max(used, key=used.get), "ranks_params_equal": ranks_equal})
+    emit(row)
     if not ok:
-        raise AssertionError(f"dp_reference: two ranks vs one beyond the bars: rollout "
-                             f"{rollout}, parameters at {max(used.values())} of the bar, "
-                             f"ranks equal {ranks_equal}")
+        raise AssertionError(f"{phase}: {ranks} {backend} ranks ({backends}) vs one beyond "
+                             f"the bars: rollout {rollout}, parameters at "
+                             f"{max(used.values())} of the bar, ranks equal {ranks_equal}")
 
 
-def train_dp_run(outdir: str, logroot: str, device: str):
-    """One rank of the train-dp phase: B1 held bitwise at its shard's width
-    and rows, then :func:`run_training` of the bench configuration sharded
-    over the ranks, with the all-reduces timed (CUDA events) inside and
-    outside the update; its row, B1's check and a checksum of the
-    parameters written to ``outdir/rank<r>.json``."""
+def train_dp_run(outdir: str, logroot: str, device: str, num_envs: int = NUM_ENVS,
+                 phase: str = "train_dp"):
+    """One rank of a data-parallel train phase on ``rank_device(device)``:
+    B1 held bitwise at its shard's width and rows, then :func:`run_training`
+    of the bench configuration at ``num_envs`` global envs sharded over the
+    ranks, with the all-reduces timed (CUDA events) inside and outside the
+    update; its row (with its card, backend and CPU affinity), B1's check
+    and a checksum of the parameters written to ``outdir/rank<r>.json``."""
     import hashlib
 
     import torch
@@ -1882,11 +2012,11 @@ def train_dp_run(outdir: str, logroot: str, device: str):
     from legged_tracking_torch.envs import LeggedEnv, legged_env
     from legged_tracking_torch.learn import ppo
     from legged_tracking_torch.learn.runner import Runner, RunnerArgs
-    from legged_tracking_torch.parallel import Shard
+    from legged_tracking_torch.parallel import Shard, rank_device
 
-    dev = torch.device(device)
+    dev = rank_device(device)
     rank, world = dist.get_rank(), dist.get_world_size()
-    env = LeggedEnv(bench_cfg(NUM_ENVS), device=dev, shard=Shard(rank, world, NUM_ENVS))
+    env = LeggedEnv(bench_cfg(num_envs), device=dev, shard=Shard(rank, world, num_envs))
     scan_row = scan_check(env, dev)
     spans = {"update_allreduce": [], "other_allreduce": []}
     in_update = [False]
@@ -1894,9 +2024,9 @@ def train_dp_run(outdir: str, logroot: str, device: str):
     def evented(fn):
         def run(tensors, *a, **k):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
+            start.record(torch.cuda.current_stream(dev))
             out = fn(tensors, *a, **k)
-            end.record()
+            end.record(torch.cuda.current_stream(dev))
             spans["update_allreduce" if in_update[0] else "other_allreduce"].append((start, end))
             return out
         return run
@@ -1918,7 +2048,7 @@ def train_dp_run(outdir: str, logroot: str, device: str):
         runner.alg.update = flagged
         return runner
 
-    runner, row = run_training("train_dp", env, make_runner, iters=4, at_setup=1,
+    runner, row = run_training(phase, env, make_runner, iters=4, at_setup=1,
                                logdir=os.path.join(logroot, f"rank{rank}"), writes=rank == 0,
                                spans=spans)
     digest = hashlib.sha256()
@@ -1929,7 +2059,9 @@ def train_dp_run(outdir: str, logroot: str, device: str):
     its = row["iterations"]
     per_it = lambda v: [sum(v[i * len(v) // its:(i + 1) * len(v) // its]) for i in range(its)]
     upd_it = per_it(upd)
-    row.update({"rank": rank, "local_envs": env.num_envs,
+    row.update({"rank": rank, "local_envs": env.num_envs, "device": str(dev),
+                "backend": dist.get_backend(), "cpu_affinity": sorted(os.sched_getaffinity(0)),
+                "torch_threads": torch.get_num_threads(),
                 "allreduce_s_in_update": upd_it, "allreduce_calls_in_update": len(upd) // its,
                 "allreduce_share_of_update": sum(upd_it[1:]) / sum(row["update_s_all"][1:]),
                 "allreduce_s_outside_update": per_it(other),
@@ -1939,50 +2071,160 @@ def train_dp_run(outdir: str, logroot: str, device: str):
         json.dump(row, f)
 
 
-def phase_train_dp(dev, card_line: str, train_row: dict):
-    """The main path over two ranks: the bench configuration at 4096 global
-    envs, 2048 a rank, two gloo ranks sharing the card, trained by
-    Runner.learn for 4 iterations; each rank held as the train phase is
+def phase_train_dp(dev, card_line: str, train_row: dict, ranks: int = DP_RANKS,
+                   backend: str = DP_BACKEND, device: str | None = None,
+                   num_envs: int = NUM_ENVS, phase: str = "train_dp"):
+    """The main path over ``ranks`` ranks: the bench configuration at
+    ``num_envs`` global envs trained by Runner.learn for 4 iterations, each
+    rank on ``rank_device(device)`` (by default ``dev``, which two gloo
+    ranks share) over ``backend``; each rank held as the train phase is
     (rank 0 the only writer), their parameters equal, and the global train
-    env-steps/s printed beside the 1-rank train phase's of this call."""
+    env-steps/s printed beside the 1-rank train phase's of this call (and,
+    where the ranks have a card each, the efficiency against it)."""
     from legged_tracking_torch.parallel import launch
 
+    device = device or str(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out:
         logroot = os.path.join(out, "runs")
-        launch(train_dp_run, DP_RANKS, out, logroot, str(dev), backend=DP_BACKEND,
-               device=str(dev))
-        ranks = []
-        for r in range(DP_RANKS):
+        launch(train_dp_run, ranks, out, logroot, device, num_envs, phase, backend=backend,
+               device=device)
+        res = []
+        for r in range(ranks):
             with open(os.path.join(out, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+                res.append(json.load(f))
         writers = sorted(os.listdir(logroot))
-    digests = {r["params_sha256"] for r in ranks}
+    digests = {r["params_sha256"] for r in res}
     if len(digests) != 1:
-        raise AssertionError(f"train_dp: the ranks' parameters differ: {digests}")
-    if writers != ["rank0"] or not ranks[0]["logdir_files"] or ranks[1]["logdir_files"]:
-        raise AssertionError(f"train_dp: logdirs written {writers}, rank 0 "
-                             f"{ranks[0]['logdir_files']}, rank 1 {ranks[1]['logdir_files']}")
+        raise AssertionError(f"{phase}: the ranks' parameters differ: {digests}")
+    if writers != ["rank0"] or not res[0]["logdir_files"] \
+            or any(r["logdir_files"] for r in res[1:]):
+        raise AssertionError(f"{phase}: logdirs written {writers}, files "
+                             f"{[r['logdir_files'] for r in res]}")
+    backends = [r["backend"] for r in res]
+    if backends != [backend] * ranks:
+        raise AssertionError(f"{phase}: the ranks' backends {backends}, not {backend}")
     # the ranks' iterations meet at every all-reduce: the global rate is the
-    # global envs' steps over the slower rank's iteration
-    it_s = [max(r["iteration_s_all"][i] for r in ranks) for i in range(1, ranks[0]["iterations"])]
-    rate = ranks[0]["envs"] * ranks[0]["steps"] / (sum(it_s) / len(it_s))
-    emit({"phase": "train_dp", "ok": True, "card": card_line, "ranks": DP_RANKS,
-          "backend": DP_BACKEND, "device": str(dev),
-          "note": "the ranks share one card; NCCL across cards is not exercised on a "
-                  "one-card machine",
-          "envs": ranks[0]["envs"], "envs_per_rank": ranks[0]["local_envs"],
-          "train_env_steps_per_s": rate,
-          "one_rank_train_env_steps_per_s": train_row["train_env_steps_per_s"],
-          "params_sha256": digests.pop(), "logdirs_written": writers,
-          "per_rank": [{k: r[k] for k in (
-              "rank", "iteration_s_all", "rollout_s", "update_s", "rollout_s_all",
-              "update_s_all", "allreduce_share_of_update", "allreduce_s_in_update",
-              "allreduce_calls_in_update", "allreduce_s_outside_update",
-              "allreduce_calls_outside_update", "peak_mem_gib", "setup_s",
-              "scan_heights_launches", "per_iteration", "at_setup", "scan_heights_check",
-              "last", "logdir_files")} for r in ranks]})
-    return {f"train_dp_rank{r['rank']}": {"scan_heights": r["scan_heights_launches"]}
-            for r in ranks}
+    # global envs' steps over the slowest rank's iteration
+    it_s = [max(r["iteration_s_all"][i] for r in res) for i in range(1, res[0]["iterations"])]
+    rate = res[0]["envs"] * res[0]["steps"] / (sum(it_s) / len(it_s))
+    one_rate = train_row["train_env_steps_per_s"]
+    devices = [r["device"] for r in res]
+    row = {"phase": phase, "ok": True, "card": card_line, "ranks": ranks, "backend": backend,
+           "device": device, "rank_devices": devices}
+    if len(set(devices)) == 1:
+        row["note"] = ("the ranks share one card; NCCL across cards runs in "
+                       "chip_smoke.py --cards 4")
+    row.update({"envs": res[0]["envs"], "envs_per_rank": res[0]["local_envs"],
+                "train_env_steps_per_s": rate, "one_rank_train_env_steps_per_s": one_rate,
+                "one_rank_envs": train_row["envs"]})
+    if len(set(devices)) == ranks:
+        row.update({"speedup_over_one_rank": rate / one_rate,
+                    "efficiency": rate / (ranks * one_rate), "cpu_count": os.cpu_count()})
+    row.update({"params_sha256": digests.pop(), "logdirs_written": writers,
+                "per_rank": [{k: r[k] for k in (
+                    "rank", "device", "backend", "cpu_affinity", "torch_threads",
+                    "iteration_s_all", "rollout_s", "update_s", "rollout_s_all",
+                    "update_s_all", "allreduce_share_of_update", "allreduce_s_in_update",
+                    "allreduce_calls_in_update", "allreduce_s_outside_update",
+                    "allreduce_calls_outside_update", "peak_mem_gib", "setup_s",
+                    "scan_heights_launches", "per_iteration", "at_setup",
+                    "scan_heights_check", "last", "logdir_files")} for r in res]})
+    emit(row)
+    return {f"{phase}_rank{r['rank']}": {"scan_heights": r["scan_heights_launches"]}
+            for r in res}
+
+
+# the train entries the --cards mode drives across the cards, each for 2
+# iterations at its own defaults; timesteps count 24 steps an iteration
+ENTRIES = ("train", "train_hierarchy", "train_velocity_tracking")
+ENTRY_ITERS, ENTRY_STEPS = 2, 24
+
+
+def entry_commands(k: int, logroot: str, extra=()) -> dict:
+    """The command of each train entry on ``k`` ranks, by name: ``--num_devices
+    k`` on each entry, and torchrun's ``k`` processes joining through
+    ``train --distributed``; each for 2 iterations into ``logroot/<name>``,
+    with ``extra`` flags."""
+    py = sys.executable
+    cmds = {name: [py, "-m", f"legged_tracking_torch.{name}", "--num_devices", str(k)]
+            for name in ENTRIES}
+    cmds["train_distributed"] = [py, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", str(k), "-m",
+                                 "legged_tracking_torch.train", "--distributed"]
+    return {name: [*cmd, "--iterations", str(ENTRY_ITERS),
+                   "--logdir", os.path.join(logroot, name), *extra]
+            for name, cmd in cmds.items()}
+
+
+def entry_load_back(name: str, ckpt: str, dev) -> bool:
+    """The entry's Runner at 8 envs on 2x2 tiles on ``dev``, resumed from
+    ``ckpt`` through the entry's own ``--resume``: True where its
+    parameters are the checkpoint's, bitwise."""
+    import importlib
+
+    import torch
+
+    from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+    from legged_tracking_torch.io.checkpoint import flax_params_to_state_dict, load_pickle
+
+    module = "train" if name == "train_distributed" else name
+    entry = importlib.import_module(f"legged_tracking_torch.{module}")
+    args = entry.parse_args(["--num_envs", "8", "--terrain_rows", "2", "--terrain_cols", "2",
+                             "--resume", ckpt, "--device", str(dev)])
+    cfg = entry.build_cfg(args)
+    if module == "train":
+        runner = entry.make_runner(args, cfg, LeggedEnv(cfg, device=dev))
+    else:
+        make_env = VelocityTrackingEnv if module == "train_velocity_tracking" else LeggedEnv
+        runner = entry.make_runner(args, make_env(cfg, device=dev))
+    saved = flax_params_to_state_dict(load_pickle(ckpt)["params"])
+    params = runner.train_state.params
+    return params.keys() == saved.keys() and all(
+        torch.equal(v.detach().cpu(), saved[k]) for k, v in params.items())
+
+
+def phase_entries(dev, card_line: str, k: int, extra=()):
+    """The train entries across ``k`` ranks as a user starts them
+    (:func:`entry_commands`), one after another: each exits 0, rank 0 alone
+    prints, its ``metrics.jsonl`` holds 2 iterations of the global envs'
+    steps, and its checkpoint loads back into the entry's Runner on ``dev``
+    (:func:`entry_load_back`)."""
+    import re
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entries_") as logroot:
+        for name, cmd in entry_commands(k, logroot, extra).items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"entries: {' '.join(cmd)} exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            logdir = os.path.join(logroot, name)
+            with open(os.path.join(logdir, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            envs = [int(n) for n in re.findall(r"^env: (\d+) envs", proc.stdout, re.M)]
+            last = re.findall(r"^it +1 \|", proc.stdout, re.M)
+            files = sorted(os.listdir(logdir))
+            loads = entry_load_back(name, os.path.join(logdir, "ac_weights_last.pkl"), dev)
+            run = {"seconds": seconds, "envs": envs, "iterations": [r["it"] for r in records],
+                   "timesteps": [r["timesteps"] for r in records],
+                   "last_iteration_lines": len(last), "logdir_files": files,
+                   "checkpoint_loads_back": loads,
+                   "last": {key: records[-1][key] for key in ("value_loss", "kl_mean",
+                                                             "rew_total", "fps")
+                            if key in records[-1]}}
+            good = (len(envs) == 1 and len(last) == 1
+                    and run["iterations"] == list(range(ENTRY_ITERS))
+                    and run["timesteps"] == [envs[0] * ENTRY_STEPS * (i + 1)
+                                             for i in range(ENTRY_ITERS)]
+                    and {"metrics.jsonl", "ac_weights_last.pkl", "policy.npz"} <= set(files)
+                    and loads)
+            if not good:
+                raise AssertionError(f"entries: {name}: {run}")
+            runs[name] = {"command": cmd[1:], **run}
+    emit({"phase": "entries", "ok": True, "card": card_line, "ranks": k, "runs": runs})
 
 
 def window_reference(dev, make_env, tol: dict) -> dict:
@@ -2142,7 +2384,7 @@ def phase_train_window(dev, card_line: str, train_row: dict) -> dict:
             raise AssertionError(f"train_window: non-finite metrics at {big.num_envs} envs, "
                                  f"{name}")
         modes[name] = {"iteration_s": secs,
-                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
                        "before_gib": base / 2 ** 30}
         del alg, ts, state, obs, out
     row.update({"card": card_line, "envs_16k": big.num_envs, "scan_heights_check_16k": scan_row,
@@ -2594,16 +2836,73 @@ def profile(fn, label: str, out_dir: str, card_line: str):
           "top": [{"name": k[:80], "ms": t / 1e3, "count": c} for k, t, c in rows[:15]]})
 
 
+def clocked_phase(seconds: dict, name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds stored as ``seconds[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    seconds[name] = time.perf_counter() - t0
+    return out
+
+
+def main_cards(k: int) -> int:
+    """The ``--cards K`` run: data parallelism across K cards over NCCL, one
+    rank a card (its phases: the module docstring's)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cards = [card(i) for i in range(k)]
+    cards_line = "; ".join(cards)
+    seconds = {}
+    timed = functools.partial(clocked_phase, seconds)
+    timed("build", phase_build, cards_line)
+    row = timed("kernels_per_card", phase_kernels_per_card, cards)
+    timed("dp_reference_nccl", phase_dp_reference, dev, cards_line, ranks=k, backend="nccl",
+          device="cuda", phase="dp_reference_nccl")
+    # the 1-rank bench train both scalings are read against
+    runs = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        one = timed("train", phase_train, dev, cards[0], None, os.path.join(runs, "bench"))
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    by_path = {"train": {"scan_heights": one["scan_heights_launches"]}}
+    for phase, envs in (("train_nccl_weak", k * NUM_ENVS), ("train_nccl_strong", NUM_ENVS)):
+        by_path.update(timed(phase, phase_train_dp, dev, cards_line, one, ranks=k,
+                             backend="nccl", device="cuda", num_envs=envs, phase=phase))
+    timed("entries", phase_entries, dev, cards_line, k)
+    emit({"phase_seconds": seconds, "cards": cards})
+    row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
+    row["launches"] = by_path["train_nccl_weak_rank0"][row["name"]]
+    if not all(row["launches_by_path"].values()):
+        raise AssertionError(f"{row['name']} was not launched on every path of its own: "
+                             f"{row['launches_by_path']}")
+    emit({"kernels": [row], "cards": cards})
+    for line in cards:
+        print(line)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one rollout and one train iteration and write the "
                          "kernel tables to DIR")
+    ap.add_argument("--cards", type=int, default=1, metavar="K",
+                    help="with K > 1, drive data parallelism across K cards over NCCL, "
+                         "one rank a card, instead of the one-card run")
     args = ap.parse_args(argv)
+    if args.cards < 1 or (args.cards > 1 and args.profile):
+        ap.error("--cards takes K >= 1, and --profile profiles the one-card run only")
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: --cards {args.cards} needs {args.cards} CUDA devices; torch sees "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     try:
@@ -2611,6 +2910,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 2
+    if args.cards > 1:
+        return main_cards(args.cards)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card_line = card()
@@ -2618,12 +2919,7 @@ def main(argv=None) -> int:
     # wall seconds of each phase, set-up included: the run has to stay
     # well inside its time limit as phases are added
     seconds = {}
-
-    def timed(name, fn, *a):
-        t0 = time.perf_counter()
-        out = fn(*a)
-        seconds[name] = time.perf_counter() - t0
-        return out
+    timed = functools.partial(clocked_phase, seconds)
 
     timed("build", phase_build, card_line)
     rows = timed("kernels", phase_kernels, dev, card_line)

@@ -25,7 +25,9 @@ lists included (ROADMAP.md §C).
 Data parallelism (``num_devices`` K > 1, or ``distributed``) runs one Runner
 per rank of an initialized process group (:mod:`..parallel.distributed`):
 the env becomes the rank's shard of its envs, every rank builds the same
-parameters from the shared seed (checked equal at start), PPO all-reduces
+parameters from the shared seed (checked equal at start; a policy of the
+caller's is given as a function that builds it, which the Runner calls
+where it draws from that seed), PPO all-reduces
 what it reduces, so the metrics and the curriculum decisions are global and
 alike on every rank, and only rank 0 writes ``parameters.pkl``,
 ``metrics.jsonl``, checkpoints, the best snapshot and ``policy.npz`` (the
@@ -93,6 +95,8 @@ class Runner:
         s_init, s_env, s_act = (int(s) for s in np.random.SeedSequence(seed).generate_state(3))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(s_init)
+            if callable(ac) and not isinstance(ac, torch.nn.Module):
+                ac = ac()       # a policy factory draws from the seed, as JAX's init key
             self.alg = PPO(env, ac_args=ac_args, args=ppo_args, ac=ac, seed=s_act)
         if self.distributed and dist.get_world_size() > 1:
             check_replicated(self.alg.ac.state_dict())

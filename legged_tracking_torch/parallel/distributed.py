@@ -127,11 +127,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def loopback_bootstrap():
+    """Point gloo's and NCCL's bootstrap sockets at the loopback interface,
+    where the caller has not named one: for a group whose ranks all run on
+    this host.  NCCL takes ``lo`` only when it finds no other interface, and
+    on a host without a network another interface need not reach this host's
+    ranks."""
+    for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
+        os.environ.setdefault(var, "lo")
+
+
 def _run_rank(rank, fn, world, port, backend, device, args):
-    # every rank of a launch is local: rank_device reads these, and gloo
-    # connects the ranks over the loopback interface
+    # every rank of a launch is local: rank_device reads these, and the
+    # ranks connect over the loopback interface
     os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    loopback_bootstrap()
     init_distributed(f"127.0.0.1:{port}", world, rank, backend=backend, device=device)
     try:
         fn(*args)
@@ -173,12 +183,16 @@ def run_ranks(fn, args):
     """``fn(args)`` in the ranks a train entry's flags ask for:
     ``--num_devices`` K > 1 spawns K ranks on this host (:func:`launch`,
     returns None), ``--distributed`` joins a group launched outside
-    (``LTPU_*`` or torchrun), else one process.  ``--dist_backend`` and
-    ``--device`` pass to :func:`init_distributed`."""
+    (``LTPU_*`` or torchrun; on one host, with :func:`loopback_bootstrap`),
+    else one process.  ``--dist_backend`` and ``--device`` pass to
+    :func:`init_distributed`."""
     k = getattr(args, "num_devices", None) or 1
     if k > 1:
         return launch(fn, k, args, backend=args.dist_backend, device=args.device)
     if getattr(args, "distributed", False):
+        world = os.environ.get("WORLD_SIZE")
+        if world is not None and os.environ.get("LOCAL_WORLD_SIZE") == world:
+            loopback_bootstrap()        # torchrun's group on this host alone
         init_distributed(backend=args.dist_backend, device=args.device)
         try:
             return fn(args)

@@ -348,7 +348,8 @@ def make_policy(args, cfg, env):
 
 def make_runner(args, cfg, env, **runner_kwargs):
     """The Runner that :func:`main` trains: the policy of
-    :func:`make_policy` and the PPO and runner arguments of the flags
+    :func:`make_policy`, built by the Runner from ``--seed`` (so alike on
+    every rank), and the PPO and runner arguments of the flags
     (``runner_kwargs`` override RunnerArgs fields)."""
     from .learn.actor_critic import ACArgs
     from .learn.ppo import PPOArgs
@@ -369,7 +370,7 @@ def make_runner(args, cfg, env, **runner_kwargs):
                   ac_args=ACArgs(normalize_obs=args.normalize_obs,
                                  max_noise_std=args.max_noise_std),
                   logdir=args.logdir, log_wandb=args.wandb, seed=args.seed,
-                  ac=make_policy(args, cfg, env), num_devices=args.num_devices,
+                  ac=lambda: make_policy(args, cfg, env), num_devices=args.num_devices,
                   distributed=args.distributed)
 
 

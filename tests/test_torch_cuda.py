@@ -3,8 +3,9 @@ grid, and across the env and point counts where its blocking and staging
 change), and an env step on the card (kernels) against the same step on
 the CPU (plain versions), the deploy runtime and the actuator-net fit on
 the card against the CPU.  Every test here needs an NVIDIA card and skips
-without one, but for the last, which holds that the deploy runtime refuses
-``cuda`` where there is no card.
+without one, but for the one which holds that the deploy runtime refuses
+``cuda`` where there is no card; the data-parallel tests across cards need
+four and skip with fewer.
 
 This file imports neither JAX nor the JAX package, so that it also runs
 where only PyTorch is installed:
@@ -628,6 +629,41 @@ def test_data_parallel_on_card_matches_one_rank(cuda_device):
     import chip_smoke
 
     chip_smoke.phase_dp_reference(torch.device("cuda", 0), "card test")
+
+
+@pytest.fixture
+def four_cards(cuda_device):
+    count = torch.cuda.device_count()
+    if count < 4:
+        pytest.skip(f"needs 4 NVIDIA cards (data parallelism across cards over NCCL); torch "
+                    f"sees {count}")
+    return 4
+
+
+@pytest.mark.cuda
+def test_scan_kernel_bitwise_on_every_card(four_cards):
+    """chip_smoke.py's kernels-per-card phase: kernel B1 == its plain
+    version, bitwise, at the bench shapes on each of four cards (the inputs
+    made on card 0 and copied), its output on the card of its inputs."""
+    import chip_smoke
+
+    row = chip_smoke.phase_kernels_per_card([f"card {k}" for k in range(four_cards)])
+    assert row["max_abs_err"] == 0.0
+    assert [c["card_index"] for c in row["per_card"]] == list(range(four_cards))
+
+
+@pytest.mark.cuda
+def test_data_parallel_across_four_cards_matches_one_rank(four_cards):
+    """chip_smoke.py's dp-reference-nccl phase: the 8-env configuration of
+    tests/test_distributed.py run by four NCCL ranks, one a card, and by one
+    rank on card 0, within 1e-5 on the rollout and atol 2e-4 / rtol 2e-3 on
+    the parameters after two Runner.learn iterations (the phase raises past
+    them, or where a rank's backend is not NCCL), the ranks' parameters
+    equal."""
+    import chip_smoke
+
+    chip_smoke.phase_dp_reference(torch.device("cuda", 0), "card test", ranks=four_cards,
+                                  backend="nccl", device="cuda", phase="dp_reference_nccl")
 
 
 def cse_export(path, n_obs, n_hist, seed=0):

@@ -1,13 +1,16 @@
 """Data parallelism of the port (``legged_tracking_torch/parallel``) on the
-CPU: two gloo ranks, each holding 4 of 8 envs, against the 1-rank port.
+CPU: two gloo ranks, each holding 4 of 8 envs, and four, each holding 2
+(the shape of a four-card run), against the 1-rank port.
 
 The bars are the JAX package's own (``tests/test_distributed.py``): a
 sharded rollout within 1e-5 of one device on base positions and obs, two
 train iterations within atol 2e-4 / rtol 2e-3 on every parameter, and a
 two-process ``Runner.learn`` within 1e-3 / 6e-3.  The 1-rank port is held to
 the JAX package elsewhere (``test_torch_ppo.py``, ``test_torch_runner*.py``).
-The two ranks run once, in a module fixture; each writes what it computed
-and the tests compare.  ``cheap_perm`` is held bitwise against JAX's
+The two ranks run once, in a module fixture, and so do the four; each
+writes what it computed and the tests compare.  The bootstrap variables and
+the ranks' cards are read through monkeypatched ``init_distributed`` and
+``torch.cuda``.  ``cheap_perm`` is held bitwise against JAX's
 ``_cheap_perm`` on JAX's own draws, fed to the port.  JAX is imported in
 that test only: the spawned ranks import this module, and need none of it.
 """
@@ -366,6 +369,152 @@ def test_train_entry_on_two_cpu_ranks(tmp_path):
     assert all(np.isfinite(recs[-1][k]) for k in ("value_loss", "kl_mean", "rew_total"))
     assert "params/actor_body/Dense_0/kernel" in np.load(logdir / "policy.npz")
     assert res.stdout.count("it     1") == 1          # rank 0 prints, rank 1 does not
+
+
+def test_train_entry_policy_is_drawn_from_the_seed():
+    """The train entry's default policy (``ActorCriticCNN``) is drawn from
+    ``--seed`` inside the Runner, whatever the process's own RNG holds, so
+    the ranks of a data-parallel run start alike; drawn from each process's
+    RNG, the Runner's check that the ranks hold rank 0's parameters raised
+    on every entry run at ``--num_devices`` K without ``--old_ppo``."""
+    from legged_tracking_torch import train as entry
+
+    argv = ["--device", "cpu", "--num_envs", str(N), "--terrain_rows", "2",
+            "--terrain_cols", "2"]
+    params = []
+    for process_seed in (0, 1):
+        args = entry.parse_args(argv)
+        cfg = entry.build_cfg(args)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(process_seed)
+            runner = entry.make_runner(args, cfg, LeggedEnv(cfg, device="cpu"))
+        assert type(runner.alg.ac).__name__ == "ActorCriticCNN"
+        params.append({k: v.detach().clone() for k, v in runner.train_state.params.items()})
+    apart = {k: float((params[1][k] - v).abs().max()) for k, v in params[0].items()
+             if not torch.equal(params[1][k], v)}
+    assert not apart, f"{len(apart)} of {len(params[0])} leaves apart, by up to: {apart}"
+
+
+# ------------------------------------------------------------ four ranks
+def four_rank_work(outdir):
+    """One of four ranks' rollout and two train iterations, 2 envs a rank,
+    written to ``four<r>.pkl``."""
+    torch.set_num_threads(1)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shard = Shard(rank, world, N)
+    steps, _ = rollout(make_env(shard))
+    params, metrics = train(make_env(shard))
+    with open(os.path.join(outdir, f"four{rank}.pkl"), "wb") as f:
+        pickle.dump({"rollout": steps, "params": params, "metrics": metrics}, f)
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("four"))
+    launch(four_rank_work, 4, out, backend="gloo", device="cpu")
+    res = []
+    for r in range(4):
+        with open(os.path.join(out, f"four{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def test_four_ranks_rollout_matches_one_rank(four_ranks):
+    whole, _ = rollout(make_env())
+    for t, ref in enumerate(whole):
+        for k in ("base_pos", "obs", "rew"):
+            got = cat([r["rollout"][t][k] for r in four_ranks])
+            np.testing.assert_allclose(got.numpy(), ref[k].numpy(), atol=1e-5,
+                                       err_msg=f"step {t} {k}")
+
+
+def test_four_ranks_train_iterations_match_one_rank(four_ranks, one_rank_train):
+    """Four ranks' two train iterations within the JAX package's bars of one
+    rank's, the four ranks' parameters bitwise alike."""
+    params, metrics = one_rank_train
+    for k, v in params.items():
+        for r in four_ranks:
+            np.testing.assert_allclose(r["params"][k].numpy(), v.numpy(), atol=2e-4,
+                                       rtol=2e-3, err_msg=k)
+            torch.testing.assert_close(r["params"][k], four_ranks[0]["params"][k],
+                                       rtol=0, atol=0)
+    for k in ("value_loss", "surrogate_loss", "adaptation_loss", "kl_mean",
+              "mean_reward_per_step", "action_std_mean", "num_episodes"):
+        np.testing.assert_allclose(four_ranks[0]["metrics"][k].numpy(), metrics[k].numpy(),
+                                   rtol=2e-3, atol=2e-4, err_msg=k)
+
+
+# ------------------------------------------------ cards and bootstrap
+@pytest.mark.parametrize("local_rank", range(4))
+def test_rank_device_maps_local_ranks_onto_four_cards(monkeypatch, local_rank):
+    """On a host of four cards a bare ``cuda`` is the local rank's card, and
+    a named card stays itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert rank_device("cuda", local_rank) == torch.device("cuda", local_rank)
+    assert rank_device(f"cuda:{local_rank}", 0) == torch.device("cuda", local_rank)
+
+
+def test_rank_device_refuses_a_card_that_is_not_there(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="cuda:4: torch sees 4 CUDA device"):
+        rank_device("cuda:4")
+
+
+BOOTSTRAP = ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME")
+
+
+def unset(monkeypatch, *names):
+    """Remove ``names`` from the environment for one test (set first, so
+    that monkeypatch restores them as they were)."""
+    for name in names:
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
+
+
+def recording_init(monkeypatch, seen):
+    """``init_distributed`` and ``destroy_process_group`` replaced: the
+    former records the bootstrap variables it would join with."""
+    from legged_tracking_torch.parallel import distributed
+
+    def init(*args, **kwargs):
+        seen.update({k: os.environ.get(k) for k in (*BOOTSTRAP, "LOCAL_RANK",
+                                                     "LOCAL_WORLD_SIZE")})
+        seen["backend"] = kwargs.get("backend")
+    monkeypatch.setattr(distributed, "init_distributed", init)
+    monkeypatch.setattr(dist, "destroy_process_group", lambda: None)
+    return distributed
+
+
+@pytest.mark.parametrize("user_nccl", [None, "eth7"])
+def test_spawned_rank_bootstraps_on_loopback(monkeypatch, user_nccl):
+    """A rank that ``launch`` spawns joins with gloo's and NCCL's bootstrap
+    on the loopback interface, and keeps an interface the user named."""
+    unset(monkeypatch, *BOOTSTRAP, "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+    if user_nccl:
+        monkeypatch.setenv("NCCL_SOCKET_IFNAME", user_nccl)
+    seen = {}
+    recording_init(monkeypatch, seen)._run_rank(3, lambda: None, 4, 1234, "nccl", "cuda", ())
+    assert seen == {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": user_nccl or "lo",
+                    "LOCAL_RANK": "3", "LOCAL_WORLD_SIZE": "4", "backend": "nccl"}
+
+
+@pytest.mark.parametrize("local_world,nccl", [("4", "lo"), ("2", None)])
+def test_distributed_entry_bootstraps_on_loopback_on_one_host(monkeypatch, local_world, nccl):
+    """``--distributed`` under torchrun: a group on this host alone (local
+    world = world) bootstraps on the loopback interface; one across hosts
+    keeps NCCL's own choice."""
+    import argparse
+
+    unset(monkeypatch, *BOOTSTRAP)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    seen = {}
+    args = argparse.Namespace(num_devices=None, distributed=True, dist_backend=None,
+                              device="cuda")
+    assert recording_init(monkeypatch, seen).run_ranks(lambda a: "trained", args) == "trained"
+    assert (seen["NCCL_SOCKET_IFNAME"], seen["GLOO_SOCKET_IFNAME"]) == (nccl, nccl)
 
 
 # --------------------------------------------------------- cheap shuffle

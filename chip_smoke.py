@@ -159,12 +159,26 @@ Phases of the one-card run, each printing one JSON line:
    bitwise at that width, and one ``train_iteration`` with stored and one
    with windowed histories after an untimed one: the peak memory and
    seconds of each.
+24. bench-tools: the port's measurement tools on the main path, each run
+   as a user runs it, in a process of its own: the bench entry
+   (``python -m legged_tracking_torch.bench`` at 4096 envs, 2 warm-up and
+   2 timed calls of 2 ``train_iteration``s), its last line held to the
+   JAX bench line's four keys with a finite positive rate and B1's
+   launches to (2 + 2) x 2 x 24 + 1 = 193; then ``tools/profile_bench
+   --trace --iters 1 --ops`` into a temporary directory (removed at the
+   end), ``tools/analyze_trace`` and ``tools/roofline --from-trace`` on
+   that trace: one line each of the top 10 kernels, the top 10 source
+   lines by device ms an iteration, the top 10 by launches and by syncs a
+   step, the idle share, and the two FLOP counts with the share of the
+   float32 peak (at the traced iteration and at the bench entry's).  Fails
+   unless the port's lines claim 90 % of the device's busy time and B1 is
+   filed under ``terrain/scan.py``.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
-path, eval, actuator-log, data-parallel and windowed paths included, and none on the
-velocity and deploy paths), each as one JSON line, the card's
-name and power limit as ``nvidia-smi`` prints them, and last ``{"ok": true,
-"device": ...}``.
+path, eval, actuator-log, data-parallel, windowed and bench-entry paths
+included, and none on the velocity and deploy paths), each as one JSON
+line, the card's name and power limit as ``nvidia-smi`` prints them, and
+last ``{"ok": true, "device": ...}``.
 
 ``--cards K`` (K > 1; 4 on a four-card host) drives data parallelism across
 the cards over NCCL, one rank a card, each rank on ``rank_device("cuda")``
@@ -199,6 +213,10 @@ are fewer; nothing moves to gloo, to fewer ranks or to the CPU.  Phases:
    alone prints, its ``metrics.jsonl`` counts the global envs, and its
    checkpoint loads back into the entry's Runner on card 0 (8 envs).
    B1's launches in these processes are not counted.
+8. scaling-nccl: ``tools/scaling_bench --devices 1 2 K --dist_backend
+   nccl`` at the bench's 4096 total envs (its plane, P-control
+   configuration), 2 iterations each: its summary, every rank on NCCL and
+   a card of its own.
 
 Then the phases' seconds, the kernel table (B1 with each card's time, and
 its launches on every rank of the two train phases), every card's name and
@@ -222,60 +240,22 @@ import sys
 import tempfile
 import time
 
+from legged_tracking_torch.bench import bench_cfg, device_line
+from legged_tracking_torch.tools.roofline import F32_OPS_PER_S, HBM_BYTES_PER_S, update_flop
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # the bench's width (bench.py:build): envs stepped in parallel on the card
 NUM_ENVS = 4096
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
 
 def card(index: int = 0) -> str:
     """Card ``index``'s name and power limit, as nvidia-smi prints them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", str(index)],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return device_line(f"cuda:{index}")
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def bench_cfg(num_envs: int, tiles: int = 32):
-    """The configuration of ``bench.py:build`` (tunnel tracking, single_path
-    terrain of tiles x tiles tiles, actuator net, xy commands, fixed_target
-    goal, 21x11 scan); the bench has 32x32 tiles."""
-    import numpy as np
-
-    from legged_tracking_torch.config import Cfg, config_go1
-    cfg = config_go1(Cfg())
-    cfg.env.num_envs = num_envs
-    t = cfg.terrain
-    t.mesh_type, t.terrain_type = "trimesh", "single_path"
-    t.num_rows, t.num_cols = tiles, tiles
-    t.terrain_length, t.terrain_width = 4.0, 2.0
-    t.terrain_ratio_x, t.terrain_ratio_y = 0.9, 0.5
-    t.ceiling_height, t.start_loc = 0.8, 0.32
-    t.measure_front_half = True
-    t.measured_points_x = np.linspace(-1, 1, 21)
-    t.measured_points_y = np.linspace(-0.5, 0.5, 11)
-    cfg.env.episode_length_s = 10.0
-    cfg.env.command_type = "xy"
-    cfg.control.control_type = "actuator_net"
-    cfg.asset.penalize_contacts_on = ["thigh", "calf", "base"]
-    cfg.asset.terminate_after_contacts_on = []
-    cfg.rewards.terminal_body_height = 0.0
-    cfg.reward_scales.set("exploration_lin", 1.0)
-    cfg.reward_scales.set("exploration_yaw", 0.4)
-    cfg.commands.traj_function = "fixed_target"
-    cfg.commands.traj_length = 1
-    cfg.commands.switch_dist = 0.3
-    cfg.commands.base_x = 2.6
-    return cfg
 
 
 def goal_args(num_envs: int | None = None, tiles: int = 32):
@@ -1622,21 +1602,6 @@ def phase_planner_reference(dev, card_line: str):
         raise AssertionError(f"planner card vs CPU: {bad}, {differing} differing choices")
 
 
-def update_flop(ac, samples: int) -> float:
-    """Matrix-product operations of a PPO update of the CSE policy over
-    ``samples`` sample passes, from the layer shapes: each layer's forward,
-    its weight gradient and, where its input needs one, its input gradient.
-    The actor's input holds the latent, so all its layers take an input
-    gradient; the critic's and the adaptation module's first layers read
-    the history only.  The adaptation module runs twice a minibatch (in the
-    policy, and in its own substep)."""
-    macs = lambda mlp: sum(l.in_features * l.out_features for l in mlp.layers)
-    first = lambda mlp: mlp.layers[0].in_features * mlp.layers[0].out_features
-    a, c, d = ac.actor_body, ac.critic_body, ac.adaptation_module
-    per_sample = 3 * macs(a) + (3 * macs(c) - first(c)) + 2 * (3 * macs(d) - first(d))
-    return 2.0 * per_sample * samples
-
-
 def run_training(phase: str, env, make_runner, iters: int, at_setup: int, logdir: str,
                  scans: bool = True, writes: bool = True, spans: dict | None = None):
     """Train ``env`` with the Runner ``make_runner(logdir)`` builds, through
@@ -2393,6 +2358,126 @@ def phase_train_window(dev, card_line: str, train_row: dict) -> dict:
     return {"scan_heights": row["scan_heights_launches"]}
 
 
+# the bench entry's run in the bench-tools phase: 2 warm-up and then
+# BENCH_TOOLS_ITERS timed calls of BENCH_TOOLS_K train iterations each
+BENCH_TOOLS_ITERS = BENCH_TOOLS_K = 2
+# the share of the device's busy time the port's source lines must claim
+PORT_SHARE_MIN = 0.9
+
+
+def tool_run(phase: str, args: list, env: dict | None = None, timeout: int = 900):
+    """``python -m <args>`` from the checkout's root: its stdout lines and
+    its last line's JSON object; raises on a non-zero exit."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=HERE, capture_output=True,
+                          text=True, timeout=timeout, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: python -m {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return lines, json.loads(lines[-1])
+
+
+def phase_bench_tools(dev, card_line: str) -> dict:
+    """The port's measurement tools on the main path, each as a user runs
+    it: the bench entry at 4096 envs (its last line held to the JAX line's
+    four keys, B1's launches to the count its calls give), then
+    ``profile_bench --trace --ops`` of one iteration into a temporary
+    directory, ``analyze_trace`` and ``roofline --from-trace`` on that
+    trace; one line each of the top kernels, the top source lines by
+    device ms, by launches and by syncs, the idle share and the FLOP
+    counts.  Fails unless the port's lines claim PORT_SHARE_MIN of the
+    device's busy time and B1 is filed under ``terrain/scan.py``.  Returns
+    B1's launches on the bench entry's path."""
+    import math
+
+    pkg = "legged_tracking_torch"
+    env = dict(os.environ, BENCH_NUM_ENVS=str(NUM_ENVS), BENCH_ITERS=str(BENCH_TOOLS_ITERS),
+               BENCH_ITERS_PER_CALL=str(BENCH_TOOLS_K))
+    t0 = time.perf_counter()
+    lines, line = tool_run("bench_tools", [f"{pkg}.bench"], env)
+    bench_s = time.perf_counter() - t0
+    run = json.loads(lines[-2])
+    keys = {"metric", "value", "unit", "vs_baseline"}
+    if set(line) != keys or line["metric"] != "train_env_steps_per_s" \
+            or not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"bench_tools: the bench entry's last line {line}")
+    launches = run["scan_heights_launches"]
+    expected = (2 + BENCH_TOOLS_ITERS) * BENCH_TOOLS_K * 24 + 1
+    if launches != expected or run["envs"] != NUM_ENVS:
+        raise AssertionError(f"bench_tools: B1 launched {launches} times at {run['envs']} envs; "
+                             f"expected {expected} at {NUM_ENVS}")
+    emit({"phase": "bench_tools", "of": "bench", "card": card_line, "line": line, "run": run,
+          "iteration_s": run["envs"] * 24 / line["value"], "process_s": bench_s})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        t0 = time.perf_counter()
+        _, prof = tool_run("bench_tools", [f"{pkg}.tools.profile_bench", "--trace", tmp,
+                                           "--iters", "1", "--ops", "--top", "10"])
+        profile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, trace = tool_run("bench_tools", [f"{pkg}.tools.analyze_trace", tmp, "--iters", "1",
+                                            "--top", "10"])
+        analyze_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, roof = tool_run("bench_tools", [f"{pkg}.tools.roofline", "--from-trace", tmp,
+                                           "--iters", "1", "--num-envs", str(NUM_ENVS)])
+        roofline_s = time.perf_counter() - t0
+    ops = prof["ops"]
+    emit({"phase": "bench_tools", "of": "kernels", "card": card_line,
+          "top_by_device_ms_per_iter": trace["kernels"]})
+    emit({"phase": "bench_tools", "of": "lines", "card": card_line,
+          "top_by_device_ms_per_iter": trace["by_line"], "by_file": trace["by_file"],
+          "port_share": trace["port_share"]})
+    emit({"phase": "bench_tools", "of": "ops", "card": card_line, "per_step": ops["per_step"],
+          "sync_kinds_per_step": ops["sync_kinds_per_step"],
+          "top_by_launches_per_step": ops["by_line_launches"],
+          "top_by_syncs_per_step": ops["by_line_syncs"],
+          "top_by_aten_ops_per_step": ops["by_line_aten_ops"]})
+    emit({"phase": "bench_tools", "of": "idle", "card": card_line,
+          "busy_ms_per_iter": trace["busy_ms_per_iter"],
+          "traced_ms_per_iter": trace["window_ms_per_iter"], "idle_share": trace["idle_share"],
+          "traced_iteration_s": prof["seconds"], "trace_stats": prof["trace_stats"]})
+    shape = roof["shape_flop_per_iter"]["total"]
+    bench_iter_s = run["envs"] * 24 / line["value"]
+    emit({"phase": "bench_tools", "of": "roofline", "card": card_line,
+          "jax_flop_per_iter": roof["jax_flop_per_iter"],
+          "jax_flop_per_iter_bench_widths": roof["jax_flop_per_iter_bench_widths"],
+          "shape_flop_per_iter": roof["shape_flop_per_iter"], "f32_floor_ms": roof["f32_floor_ms"],
+          "traced_ms_per_iter": roof["ms_per_iter"], "policy_gemm_ms_per_iter": roof["dense_ms"],
+          "f32_peak_share_traced": roof["f32_peak_share"],
+          "f32_peak_share_bench": shape / bench_iter_s / F32_OPS_PER_S,
+          "policy_gemm_f32_peak_share": roof.get("dense_f32_peak_share"),
+          "process_s": {"profile_bench": profile_s, "analyze_trace": analyze_s,
+                        "roofline": roofline_s}})
+    scan_files = {}
+    for name, files in trace["kernel_files"].items():
+        if "scan_heights" in name:
+            for f, ms in files.items():
+                scan_files[f] = scan_files.get(f, 0.0) + ms
+    if trace["port_share"] is None or trace["port_share"] < PORT_SHARE_MIN \
+            or set(scan_files) != {"terrain/scan.py"}:
+        raise AssertionError(f"bench_tools: the port's lines claim {trace['port_share']} of the "
+                             f"device's busy time (at least {PORT_SHARE_MIN}); B1 filed under "
+                             f"{scan_files}")
+    return {"scan_heights": launches}
+
+
+def phase_scaling(cards_line: str, k: int):
+    """``tools/scaling_bench`` over NCCL, one rank a card, at 1, 2 and k
+    ranks: the bench's 4096 total envs, 2 iterations each; its summary."""
+    counts = sorted({1, 2, k})
+    _, summary = tool_run("scaling_nccl", [
+        "legged_tracking_torch.tools.scaling_bench", "--devices", *map(str, counts),
+        "--dist_backend", "nccl", "--total_envs", str(NUM_ENVS), "--iters", "2"])
+    backends = {r["backend"] for ranks in summary["ranks"].values() for r in ranks}
+    devices = [sorted(r["device"] for r in summary["ranks"][str(n)]) for n in counts]
+    if backends != {"nccl"} or any(len(set(d)) != n for d, n in zip(devices, counts)) \
+            or set(summary["ms_per_iter"]) != set(map(str, counts)):
+        raise AssertionError(f"scaling_nccl: backends {backends}, rank cards {devices}, "
+                             f"counts {sorted(summary['ms_per_iter'])}")
+    emit({"phase": "scaling_nccl", "ok": True, "cards": cards_line, **summary})
+
+
 # the eval-reference phase's limits on the rollout's errors (see there)
 EVAL_ROLLOUT_TOL = {"lin_vel_rmsd": 1e-5, "ang_vel_rmsd": 2e-4, "lin_vel_x": 3e-5,
                     "ang_vel_yaw": 3e-4, "base_height": 6e-7, "max_torques": 5e-4,
@@ -2809,10 +2894,14 @@ def phase_actuator_net(dev, card_line: str, logdir: str) -> dict:
 
 
 def profile(fn, label: str, out_dir: str, card_line: str):
-    """``fn`` once more under torch.profiler: device busy time by kernel and
-    the device's idle share of its wall time."""
+    """``fn`` once more under torch.profiler: device time by kernel, and the
+    device's busy time and idle share over the traced window
+    (``tools/analyze_trace.device_busy`` of the profile's trace, which is
+    written beside the kernel table)."""
     import torch
     from torch.profiler import ProfilerActivity
+
+    from legged_tracking_torch.tools import analyze_trace
     os.makedirs(out_dir, exist_ok=True)
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -2825,13 +2914,16 @@ def profile(fn, label: str, out_dir: str, card_line: str):
     rows = sorted(((e.key, getattr(e, attr), e.count) for e in ka
                    if getattr(e, "device_type", None) is not None
                    and str(e.device_type).endswith("CUDA")), key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in rows)
     runtime = {e.key: {"count": e.count, "cpu_ms": e.cpu_time_total / 1e3} for e in ka
                if e.key.startswith("cuda") and e.count}
     with open(os.path.join(out_dir, f"{label}_kernels.txt"), "w") as f:
         f.write(ka.table(sort_by=attr, row_limit=60))
+    trace = os.path.join(out_dir, f"{label}_trace.json")
+    prof.export_chrome_trace(trace)
+    busy = analyze_trace.device_busy(analyze_trace.load_trace_events(trace))
     emit({"phase": "profile", "of": label, "card": card_line, "wall_s": wall,
-          "device_busy_s": busy_us / 1e6, "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+          "traced_s": busy["window_us"] / 1e6, "device_busy_s": busy["busy_us"] / 1e6,
+          "device_idle_share": busy["idle_share"],
           "kernel_launches": sum(r[2] for r in rows), "runtime_calls": runtime,
           "top": [{"name": k[:80], "ms": t / 1e3, "count": c} for k, t, c in rows[:15]]})
 
@@ -2870,6 +2962,7 @@ def main_cards(k: int) -> int:
         by_path.update(timed(phase, phase_train_dp, dev, cards_line, one, ranks=k,
                              backend="nccl", device="cuda", num_envs=envs, phase=phase))
     timed("entries", phase_entries, dev, cards_line, k)
+    timed("scaling_nccl", phase_scaling, cards_line, k)
     emit({"phase_seconds": seconds, "cards": cards})
     row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
     row["launches"] = by_path["train_nccl_weak_rank0"][row["name"]]
@@ -2903,12 +2996,6 @@ def main(argv=None) -> int:
     if torch.cuda.device_count() < args.cards:
         print(f"chip_smoke: --cards {args.cards} needs {args.cards} CUDA devices; torch sees "
               f"{torch.cuda.device_count()}", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    try:
-        import legged_tracking_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 2
     if args.cards > 1:
         return main_cards(args.cards)
@@ -2964,6 +3051,9 @@ def main(argv=None) -> int:
     timed("window_reference", phase_window_reference, dev, card_line)
     by_path["train_window"] = timed("train_window", phase_train_window, dev, card_line,
                                     trained["train"])
+    # the measurement tools: the bench entry, its trace, the per-line
+    # attribution and the roofline
+    by_path["bench"] = timed("bench_tools", phase_bench_tools, dev, card_line)
     emit({"phase_seconds": seconds, "card": card_line})
     for row in rows:
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}

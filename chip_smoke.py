@@ -166,13 +166,14 @@ Phases of the one-card run, each printing one JSON line:
    JAX bench line's four keys with a finite positive rate and B1's
    launches to (2 + 2) x 2 x 24 + 1 = 193; then ``tools/profile_bench
    --trace --iters 1 --ops`` into a temporary directory (removed at the
-   end), ``tools/analyze_trace`` and ``tools/roofline --from-trace`` on
-   that trace: one line each of the top 10 kernels, the top 10 source
-   lines by device ms an iteration, the top 10 by launches and by syncs a
-   step, the idle share, and the two FLOP counts with the share of the
-   float32 peak (at the traced iteration and at the bench entry's).  Fails
-   unless the port's lines claim 90 % of the device's busy time and B1 is
-   filed under ``terrain/scan.py``.
+   end) and ``tools/analyze_trace`` on that trace, then
+   ``tools/roofline`` at the bench entry's iteration time with the policy
+   GEMMs' device ms from ``analyze_trace``'s line: one line each of the
+   top 10 kernels, the top 10 source lines by device ms an iteration, the
+   top 10 by launches and by syncs a step, the idle share, and the two
+   FLOP counts with the share of the float32 peak.  Fails unless the
+   port's lines claim 90 % of the device's busy time and B1 is filed
+   under ``terrain/scan.py``.
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
 path, eval, actuator-log, data-parallel, windowed and bench-entry paths
@@ -241,7 +242,8 @@ import tempfile
 import time
 
 from legged_tracking_torch.bench import bench_cfg, device_line
-from legged_tracking_torch.tools.roofline import F32_OPS_PER_S, HBM_BYTES_PER_S, update_flop
+from legged_tracking_torch.tools.roofline import (F32_OPS_PER_S, HBM_BYTES_PER_S, dense_ms,
+                                                  update_flop)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2382,8 +2384,10 @@ def phase_bench_tools(dev, card_line: str) -> dict:
     it: the bench entry at 4096 envs (its last line held to the JAX line's
     four keys, B1's launches to the count its calls give), then
     ``profile_bench --trace --ops`` of one iteration into a temporary
-    directory, ``analyze_trace`` and ``roofline --from-trace`` on that
-    trace; one line each of the top kernels, the top source lines by
+    directory and ``analyze_trace`` on that trace, then ``roofline`` at
+    the bench entry's (untraced) iteration time with the policy GEMMs'
+    device ms from ``analyze_trace``'s line, so that nothing reads the
+    trace twice; one line each of the top kernels, the top source lines by
     device ms, by launches and by syncs, the idle share and the FLOP
     counts.  Fails unless the port's lines claim PORT_SHARE_MIN of the
     device's busy time and B1 is filed under ``terrain/scan.py``.  Returns
@@ -2418,10 +2422,13 @@ def phase_bench_tools(dev, card_line: str) -> dict:
         _, trace = tool_run("bench_tools", [f"{pkg}.tools.analyze_trace", tmp, "--iters", "1",
                                             "--top", "10"])
         analyze_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        _, roof = tool_run("bench_tools", [f"{pkg}.tools.roofline", "--from-trace", tmp,
-                                           "--iters", "1", "--num-envs", str(NUM_ENVS)])
-        roofline_s = time.perf_counter() - t0
+    bench_iter_ms = run["envs"] * 24 / line["value"] * 1e3
+    t0 = time.perf_counter()
+    _, roof = tool_run("bench_tools", [f"{pkg}.tools.roofline", "--ms-per-iter",
+                                       repr(bench_iter_ms), "--dense-ms",
+                                       repr(dense_ms(trace["kernel_files"])),
+                                       "--num-envs", str(NUM_ENVS)])
+    roofline_s = time.perf_counter() - t0
     ops = prof["ops"]
     emit({"phase": "bench_tools", "of": "kernels", "card": card_line,
           "top_by_device_ms_per_iter": trace["kernels"]})
@@ -2437,15 +2444,12 @@ def phase_bench_tools(dev, card_line: str) -> dict:
           "busy_ms_per_iter": trace["busy_ms_per_iter"],
           "traced_ms_per_iter": trace["window_ms_per_iter"], "idle_share": trace["idle_share"],
           "traced_iteration_s": prof["seconds"], "trace_stats": prof["trace_stats"]})
-    shape = roof["shape_flop_per_iter"]["total"]
-    bench_iter_s = run["envs"] * 24 / line["value"]
     emit({"phase": "bench_tools", "of": "roofline", "card": card_line,
           "jax_flop_per_iter": roof["jax_flop_per_iter"],
           "jax_flop_per_iter_bench_widths": roof["jax_flop_per_iter_bench_widths"],
           "shape_flop_per_iter": roof["shape_flop_per_iter"], "f32_floor_ms": roof["f32_floor_ms"],
-          "traced_ms_per_iter": roof["ms_per_iter"], "policy_gemm_ms_per_iter": roof["dense_ms"],
-          "f32_peak_share_traced": roof["f32_peak_share"],
-          "f32_peak_share_bench": shape / bench_iter_s / F32_OPS_PER_S,
+          "bench_ms_per_iter": roof["ms_per_iter"], "policy_gemm_ms_per_iter": roof["dense_ms"],
+          "f32_peak_share": roof["f32_peak_share"],
           "policy_gemm_f32_peak_share": roof.get("dense_f32_peak_share"),
           "process_s": {"profile_bench": profile_s, "analyze_trace": analyze_s,
                         "roofline": roofline_s}})
@@ -2894,10 +2898,11 @@ def phase_actuator_net(dev, card_line: str, logdir: str) -> dict:
 
 
 def profile(fn, label: str, out_dir: str, card_line: str):
-    """``fn`` once more under torch.profiler: device time by kernel, and the
-    device's busy time and idle share over the traced window
-    (``tools/analyze_trace.device_busy`` of the profile's trace, which is
-    written beside the kernel table)."""
+    """``fn`` once more under torch.profiler: device time by kernel, written
+    to ``out_dir``, and the device's busy time (the union of its events'
+    intervals) and idle share over the traced window, from the first
+    traced event to the last (``tools/analyze_trace.device_busy`` of the
+    profile's Chrome trace, kept in a temporary file)."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -2918,9 +2923,10 @@ def profile(fn, label: str, out_dir: str, card_line: str):
                if e.key.startswith("cuda") and e.count}
     with open(os.path.join(out_dir, f"{label}_kernels.txt"), "w") as f:
         f.write(ka.table(sort_by=attr, row_limit=60))
-    trace = os.path.join(out_dir, f"{label}_trace.json")
-    prof.export_chrome_trace(trace)
-    busy = analyze_trace.device_busy(analyze_trace.load_trace_events(trace))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy = analyze_trace.device_busy(analyze_trace.load_trace_events(trace))
     emit({"phase": "profile", "of": label, "card": card_line, "wall_s": wall,
           "traced_s": busy["window_us"] / 1e6, "device_busy_s": busy["busy_us"] / 1e6,
           "device_idle_share": busy["idle_share"],

@@ -3,7 +3,7 @@ iterations of the bench configuration (counterpart of the repo's
 ``bench.py``, which measures the JAX package).
 
     python -m legged_tracking_torch.bench                  # on the card
-    BENCH_NUM_ENVS=4 BENCH_TILES=2 BENCH_ITERS=1 BENCH_ITERS_PER_CALL=1 \\
+    BENCH_NUM_ENVS=4 BENCH_ITERS=1 BENCH_ITERS_PER_CALL=1 \\
         python -m legged_tracking_torch.bench --device cpu
 
 Builds the bench configuration (:func:`build`, read from the same
@@ -39,13 +39,18 @@ LAYOUT_KNOBS = {"BENCH_FUSED": "fused_sampling", "BENCH_GRANULE": "granule_gathe
                 "BENCH_PALLAS_SCAN": "pallas_scan"}
 
 
-def bench_cfg(num_envs: int, tiles: int = 32):
+def bench_cfg(num_envs: int, tiles: int | None = None):
     """The configuration of ``bench.py:build`` (tunnel tracking, single_path
     terrain of tiles x tiles tiles, actuator net, xy commands, fixed_target
-    goal, 21x11 scan); the bench has 32x32 tiles."""
+    goal, 21x11 scan).  By default the tiles are the most, up to the
+    bench's 32 x 32, that the envs fill evenly: 32 at 1,024 envs and any
+    multiple of them, 2 at 4 envs."""
     import numpy as np
 
     from .config import Cfg, config_go1
+    from .terrain.tunnel import even_tile_grid
+    if tiles is None:
+        tiles = even_tile_grid(num_envs, 32)
     cfg = config_go1(Cfg())
     cfg.env.num_envs = num_envs
     t = cfg.terrain
@@ -79,14 +84,12 @@ def _flag(name: str, default: bool) -> bool:
 def bench_config(num_envs=None, lane_engine=None, tiles=None):
     """(cfg, PPOArgs) of the bench, with every ``BENCH_*`` variable the JAX
     build reads applied as it applies them, at the same defaults.  The
-    terrain has ``tiles`` x ``tiles`` tiles, by default ``BENCH_TILES`` or
-    the bench's 32 (the envs must fill the tiles evenly: 4 envs take 2)."""
+    terrain has ``tiles`` x ``tiles`` tiles (by default :func:`bench_cfg`'s:
+    the bench's 32 wherever the JAX build can run)."""
     from .learn.ppo import PPOArgs
 
     if num_envs is None:
         num_envs = int(os.environ.get("BENCH_NUM_ENVS", 4096))
-    if tiles is None:
-        tiles = int(os.environ.get("BENCH_TILES", 32))
     cfg = bench_cfg(num_envs, tiles)
     sim = cfg.sim
     sim.lane_engine = _flag("BENCH_LANE", True) if lane_engine is None else lane_engine

@@ -27,6 +27,7 @@ import torch
 
 from .io.checkpoint import flax_params_to_state_dict, load_pickle
 from .learn.domain_randomization_profiles import DR_PROFILES
+from .terrain.tunnel import even_tile_grid
 
 
 def load_cfg(logdir):
@@ -51,9 +52,7 @@ def load_env(logdir, num_envs=16, dr_profile=None, device="cuda"):
         cfg = DR_PROFILES[dr_profile](cfg)
     # the eval grid wins over a profile's rows and columns; it adapts so that
     # the env count stays divisible by the tile count
-    g = 4
-    while g > 1 and num_envs % (g * g):
-        g -= 1
+    g = even_tile_grid(num_envs, 4)
     cfg.terrain.num_rows = g
     cfg.terrain.num_cols = g
     cfg.terrain.teleport_robots = False

@@ -161,6 +161,15 @@ def random_uniform_field(rng, pixel_x, pixel_y, hs, vs, difficulty):
     return _quantize(field, vs)
 
 
+def even_tile_grid(num_envs: int, most: int) -> int:
+    """The largest g <= ``most`` whose g x g tiles ``num_envs`` envs fill
+    evenly, as :func:`build_tunnel_terrain` assigns them (1 at worst)."""
+    g = most
+    while g > 1 and num_envs % (g * g):
+        g -= 1
+    return g
+
+
 def build_tunnel_terrain(tcfg, num_envs: int, seed: int = 0, device="cuda") -> TerrainArrays:
     """Build the tunnel world -> TerrainArrays.
 

@@ -187,17 +187,6 @@ def kernel_files(events, tags=None) -> dict:
     return out
 
 
-def files_of(events, pattern: str, tags=None) -> dict:
-    """{file: device us} of the device events whose name matches
-    ``pattern`` (a regular expression)."""
-    rx = re.compile(pattern)
-    out = collections.Counter()
-    for name, files in kernel_files(events, tags).items():
-        if rx.search(name):
-            out.update(files)
-    return dict(out)
-
-
 def summarize(events, iters: int, top: int = 35) -> dict:
     """The numbers :func:`main` prints, per iteration where they are times."""
     tags = attribute(events)

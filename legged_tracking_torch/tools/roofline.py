@@ -3,7 +3,7 @@
 TPU).
 
     python -m legged_tracking_torch.tools.roofline --ms-per-iter 2900
-    python -m legged_tracking_torch.tools.roofline --from-trace DIR --iters 3
+    python -m legged_tracking_torch.tools.roofline --ms-per-iter 2900 --from-trace DIR --iters 3
 
 Two counts of the policy's matrix-product FLOP in one PPO train iteration
 (the rollout's forward passes and the 5-epoch update):
@@ -18,12 +18,14 @@ and runs the adaptation module twice a minibatch.
 
 Prints both counts for the bench at ``--num-envs``, the float32 floor of an
 iteration on the card (the policy runs in float32 with TF32 off), the JAX
-tool's bf16 tensor-core floor line, the whole program's TFLOP/s and its
-share of the float32 peak at ``--ms-per-iter``, and with ``--dense-ms`` the
-policy products' share.  ``--from-trace`` reads both from a
-``profile_bench --trace``: the traced window per iteration, and the device
-time of the GEMM kernels ``analyze_trace`` files under
-``learn/actor_critic*.py``.  The policy is built on ``--device`` (the card
+tool's bf16 tensor-core floor line, and the whole program's TFLOP/s and
+share of the float32 peak at ``--ms-per-iter``: an iteration as the bench
+entry times it, untraced (the ``with_stack`` profiler stretches a traced
+iteration 2-3 times, so a traced window is no iteration time).  With
+``--dense-ms``, or ``--from-trace`` (a ``profile_bench --trace``, whose
+GEMM kernels ``analyze_trace`` files under ``learn/actor_critic*.py``), it
+also prints the policy products' share over their own device time, which
+the tracer does not stretch.  The policy is built on ``--device`` (the card
 by default; raises without one) to read its widths; the last line printed
 is one JSON object with the numbers.
 """
@@ -105,17 +107,22 @@ def iteration_flop(ac, num_envs: int, steps: int, epochs: int) -> dict:
     return {"rollout": rollout, "update": update, "total": rollout + update}
 
 
-def from_trace(trace: str, iters: int) -> tuple[float, float]:
-    """(ms per iteration, the policy products' device ms per iteration) of
-    a ``profile_bench --trace``: the traced window, and the GEMM kernels
-    filed under ``learn/actor_critic*.py``."""
+def dense_ms(kernel_files: dict) -> float:
+    """The policy products' device ms of ``analyze_trace``'s
+    ``kernel_files`` ({kernel name: {file: ms}}): the GEMM kernels filed
+    under ``learn/actor_critic*.py``."""
+    rx = re.compile(GEMM_KERNELS)
+    return sum(ms for name, files in kernel_files.items() if rx.search(name)
+               for f, ms in files.items() if POLICY_FILES.search(f))
+
+
+def from_trace(trace: str, iters: int) -> float:
+    """The policy products' device ms per iteration of a ``profile_bench
+    --trace`` holding ``iters`` iterations (:func:`dense_ms`)."""
     from . import analyze_trace as at
 
-    events = at.load_trace_events(trace)
-    busy = at.device_busy(events)
-    dense_us = sum(us for f, us in at.files_of(events, GEMM_KERNELS).items()
-                   if POLICY_FILES.search(f))
-    return busy["window_us"] / 1e3 / iters, dense_us / 1e3 / iters
+    files = at.kernel_files(at.load_trace_events(trace))
+    return dense_ms({k: {f: us / 1e3 for f, us in v.items()} for k, v in files.items()}) / iters
 
 
 def bench_policy(device):
@@ -126,7 +133,7 @@ def bench_policy(device):
     from ..parallel import entry_device
     from ..bench import bench_config
 
-    cfg, args = bench_config(4, tiles=2)
+    cfg, args = bench_config(4)
     alg = PPO(LeggedEnv(cfg, device=entry_device(device)), args=args)
     return alg.ac, alg.args
 
@@ -154,28 +161,27 @@ def report(ac, num_envs: int, steps: int, epochs: int, ms_per_iter: float,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--ms-per-iter", type=float, default=None,
-                   help="measured iteration time (bench or trace)")
+    p.add_argument("--ms-per-iter", type=float, required=True,
+                   help="an untraced iteration's ms (the bench entry's envs x 24 / rate)")
     p.add_argument("--num-envs", type=int, default=4096)
     p.add_argument("--dense-ms", type=float, default=None,
                    help="device ms an iteration of the policy's GEMM kernels")
     p.add_argument("--from-trace", metavar="TRACE", default=None,
-                   help="derive --ms-per-iter and --dense-ms from a profile_bench --trace")
+                   help="derive --dense-ms from a profile_bench --trace")
     p.add_argument("--iters", type=int, default=3,
                    help="train iterations inside the trace")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     args = p.parse_args(argv)
-    if (args.ms_per_iter is None) == (args.from_trace is None):
-        p.error("pass one of --ms-per-iter and --from-trace")
+    if args.dense_ms is not None and args.from_trace is not None:
+        p.error("pass --dense-ms or --from-trace, not both")
     if args.iters < 1:
         p.error("--iters must be >= 1")
 
     ac, ppo = bench_policy(args.device)
     if args.from_trace:
-        args.ms_per_iter, args.dense_ms = from_trace(args.from_trace, args.iters)
-        print(f"[from-trace] {args.ms_per_iter:.1f} ms/iter, "
-              f"policy GEMMs {args.dense_ms:.1f} ms/iter")
+        args.dense_ms = from_trace(args.from_trace, args.iters)
+        print(f"[from-trace] policy GEMMs {args.dense_ms:.1f} ms/iter")
     r = report(ac, args.num_envs, ppo.num_steps_per_env, ppo.num_learning_epochs,
                args.ms_per_iter, args.dense_ms)
     shape = r["shape_flop_per_iter"]

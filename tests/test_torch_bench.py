@@ -43,7 +43,7 @@ J_ROOF = _load("jax_tools_roofline", "tools/roofline.py")
 BENCH_VARS = ("BENCH_NUM_ENVS", "BENCH_LANE", "BENCH_FUSED", "BENCH_PATCH_X", "BENCH_PATCH_Y",
               "BENCH_GRANULE", "BENCH_LAYER", "BENCH_INTERLEAVED", "BENCH_PALLAS_SCAN",
               "BENCH_PMS", "BENCH_PMS_RESCAN", "BENCH_PMS_DIRECT", "BENCH_SHUFFLE",
-              "BENCH_WINDOW", "BENCH_TILES", "BENCH_ITERS", "BENCH_ITERS_PER_CALL")
+              "BENCH_WINDOW", "BENCH_ITERS", "BENCH_ITERS_PER_CALL")
 
 
 class _Captured(Exception):
@@ -99,12 +99,11 @@ def test_bench_config_matches_jax_build(clean_env, knobs):
 
 
 def test_bench_main_prints_the_jax_line(clean_env, capsys):
-    """``bench.main`` at 4 envs on 2x2 tiles, one timed call of one
-    iteration, on the CPU: the last line has the JAX line's four keys and a
+    """``bench.main`` at 4 envs (on 2x2 tiles, the most they fill evenly),
+    one timed call of one iteration, on the CPU: the last line has the JAX line's four keys and a
     finite positive rate; the line before counts B1's launches (none: the
     CPU runs the plain version)."""
-    for k, v in {"BENCH_NUM_ENVS": "4", "BENCH_TILES": "2", "BENCH_ITERS": "1",
-                 "BENCH_ITERS_PER_CALL": "1"}.items():
+    for k, v in {"BENCH_NUM_ENVS": "4", "BENCH_ITERS": "1", "BENCH_ITERS_PER_CALL": "1"}.items():
         clean_env.setenv(k, v)
     t_bench.main(["--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
@@ -132,7 +131,6 @@ def test_entries_raise_on_cuda_without_a_card(clean_env, entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     clean_env.setenv("BENCH_NUM_ENVS", "4")
-    clean_env.setenv("BENCH_TILES", "2")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ON_CUDA[entry]()
 

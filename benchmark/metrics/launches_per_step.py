@@ -1,0 +1,10 @@
+"""launches_per_step: kernel launches (``cudaLaunchKernel*``,
+``cuLaunchKernel*``) inside the ``PPO.rollout`` range of the profiled
+iteration, over its T env steps."""
+
+
+def read(ctx):
+    prof = ctx["profile"]
+    if ctx["device_type"] != "cuda" or not prof or prof["rollouts"] != 1:
+        return None
+    return prof["launches"] / ctx["steps_per_iteration"]

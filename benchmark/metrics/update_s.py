@@ -1,0 +1,7 @@
+"""update_s: wall seconds an iteration spends in ``PPO.update``, the mean
+of the traced window's spans (synchronized at both ends)."""
+
+
+def read(ctx):
+    spans = ctx["spans"].get("update")
+    return sum(spans) / len(spans) if spans else None

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..actuation import actuators
 from ..config import Cfg
 from ..parallel import Shard, all_reduce_sum
@@ -403,6 +404,7 @@ class LeggedEnv:
         )
 
     # ------------------------------------------------------------ step core
+    @tracing.spanned("env.scan")
     def _get_heights(self, base_pos, base_rpy):
         """Two-layer height scan (reference _get_heights, :1918-1965): the
         scan grid is axis-aligned around the base, shifted by the camera
@@ -442,6 +444,7 @@ class LeggedEnv:
             return torch.cat([rel_lin[:, :2], target[:, 2:5], rel_rot[:, 2:]], dim=-1)
         raise ValueError(ct)
 
+    @tracing.spanned("env.plan")
     def _plan_local_targets(self, state, target, rel_lin, base_pos, base_quat, base_rpy,
                             measured_heights, ep_len):
         """Batched sampling-based local planner (reference _plan_target_pose,
@@ -530,6 +533,7 @@ class LeggedEnv:
                 chunks.append(torch.all(torch.sqrt(r2) > 1.0, dim=-1))
         return torch.cat(chunks, dim=1)
 
+    @tracing.spanned("env.step")
     def step_fn(self, state: EnvState, actions: torch.Tensor):
         cfg = self.cfg
         dr = cfg.domain_rand
@@ -544,20 +548,21 @@ class LeggedEnv:
             actions, cfg.control.action_scale, cfg.control.hip_scale_reduction)
 
         # ---- physics: decimated control step (reference step, :64-98) ----
-        params = PhysParams(
-            friction=state.friction, restitution=state.restitution,
-            gravity=state.gravity_vec.expand(N, 3),
-            payload=state.payload, com_offset=state.com_displacement)
-        carry0 = (state.act, state.motor_strength, state.motor_offset,
-                  state.kp_factor, state.kd_factor, actions_scaled)
-        xs, ys, PX, PY = contact_window(terrain, state.phys.base_pos[:, :2],
-                                        cfg.sim.patch_x, cfg.sim.patch_y)
-        window = ContactWindow(self.tile_table, terrain.env_tile, xs, ys, PX, PY)
-        phys, carry, aux = control_step(
-            model, terrain, window, terrain.env_terrain_origin, state.phys,
-            self._torque_fn, carry0, params, cfg.sim.dt, cfg.control.decimation,
-            cfg.sim.contact_stiffness, cfg.sim.contact_damping,
-            cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
+        with tracing.span("env.physics"):
+            params = PhysParams(
+                friction=state.friction, restitution=state.restitution,
+                gravity=state.gravity_vec.expand(N, 3),
+                payload=state.payload, com_offset=state.com_displacement)
+            carry0 = (state.act, state.motor_strength, state.motor_offset,
+                      state.kp_factor, state.kd_factor, actions_scaled)
+            xs, ys, PX, PY = contact_window(terrain, state.phys.base_pos[:, :2],
+                                            cfg.sim.patch_x, cfg.sim.patch_y)
+            window = ContactWindow(self.tile_table, terrain.env_tile, xs, ys, PX, PY)
+            phys, carry, aux = control_step(
+                model, terrain, window, terrain.env_terrain_origin, state.phys,
+                self._torque_fn, carry0, params, cfg.sim.dt, cfg.control.decimation,
+                cfg.sim.contact_stiffness, cfg.sim.contact_damping,
+                cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
         act_state = carry[0]
         torques = aux.torques
         contact_forces = aux.contact_report                       # (N, 17, 3)
@@ -663,46 +668,47 @@ class LeggedEnv:
             done = done | (projected_gravity[:, 2] > 0.0)
 
         # ---- rewards (:320-355) ----
-        ctx = RewardCtx(
-            dt=self.dt, max_episode_length=float(cfg.env.max_episode_length),
-            base_pos=base_pos, base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
-            projected_gravity=projected_gravity, dof_pos=phys.qj, dof_vel=phys.v[:, 6:],
-            last_dof_vel=state.last_dof_vel, default_dof_pos=self.default_dof_pos,
-            dof_pos_soft_limits=self.dof_pos_soft_limits, torques=torques,
-            actions=actions, last_actions=state.last_actions,
-            contact_forces=contact_forces, penalised_slots=self.penalised_slots,
-            feet_slots=self.feet_slots, relative_linear=rel_lin,
-            relative_rotation=rel_rot, local_relative_linear=local_rel_lin,
-            reached_buf=reached, plan_buf=plan_buf, replan=replan,
-            episode_length_buf=ep_len, reset_buf=done,
-            feet_air_time=feet_air_time, feet_first_contact=first_contact)
-        terms = torch.stack([fn(ctx, cfg) for fn in self.reward_fns], dim=-1)  # (N, K)
-        scale_vec = self._reward_scales_t
-        if self._exp_lin_idx >= 0 or self._exp_yaw_idx >= 0:
-            scale_vec = scale_vec.clone()
-            if self._exp_lin_idx >= 0:
-                scale_vec[self._exp_lin_idx] = state.exploration_lin_scale
-            if self._exp_yaw_idx >= 0:
-                scale_vec[self._exp_yaw_idx] = state.exploration_yaw_scale
-        rews = terms * scale_vec
-        # batch-sign split (reference compute_reward, :328-335)
-        term_sign = self._rank_sum(torch.sum(rews, dim=0)) >= 0.0
-        rew_pos = torch.sum(rews * term_sign, dim=-1)
-        rew_neg = torch.sum(rews * ~term_sign, dim=-1)
-        rew = torch.sum(rews, dim=-1)
-        if cfg.rewards.only_positive_rewards:
-            rew = torch.clamp(rew, min=0.0)
-        elif cfg.rewards.only_positive_rewards_ji22_style:
-            rew = rew_pos * torch.exp(rew_neg / cfg.rewards.sigma_rew_neg)
-        # termination reward after clipping; "total" excludes it (:348-353)
-        term_cols = []
-        if self.termination_scale:
-            term_rew = self.termination_scale * (done & ~time_out).float()
-            term_cols = [term_rew[:, None]]
-        episode_sums = state.episode_sums + torch.cat(
-            [rews] + term_cols + [rew[:, None], rew_pos[:, None], rew_neg[:, None]], dim=-1)
-        if self.termination_scale:
-            rew = rew + term_rew
+        with tracing.span("env.rewards"):
+            ctx = RewardCtx(
+                dt=self.dt, max_episode_length=float(cfg.env.max_episode_length),
+                base_pos=base_pos, base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
+                projected_gravity=projected_gravity, dof_pos=phys.qj, dof_vel=phys.v[:, 6:],
+                last_dof_vel=state.last_dof_vel, default_dof_pos=self.default_dof_pos,
+                dof_pos_soft_limits=self.dof_pos_soft_limits, torques=torques,
+                actions=actions, last_actions=state.last_actions,
+                contact_forces=contact_forces, penalised_slots=self.penalised_slots,
+                feet_slots=self.feet_slots, relative_linear=rel_lin,
+                relative_rotation=rel_rot, local_relative_linear=local_rel_lin,
+                reached_buf=reached, plan_buf=plan_buf, replan=replan,
+                episode_length_buf=ep_len, reset_buf=done,
+                feet_air_time=feet_air_time, feet_first_contact=first_contact)
+            terms = torch.stack([fn(ctx, cfg) for fn in self.reward_fns], dim=-1)  # (N, K)
+            scale_vec = self._reward_scales_t
+            if self._exp_lin_idx >= 0 or self._exp_yaw_idx >= 0:
+                scale_vec = scale_vec.clone()
+                if self._exp_lin_idx >= 0:
+                    scale_vec[self._exp_lin_idx] = state.exploration_lin_scale
+                if self._exp_yaw_idx >= 0:
+                    scale_vec[self._exp_yaw_idx] = state.exploration_yaw_scale
+            rews = terms * scale_vec
+            # batch-sign split (reference compute_reward, :328-335)
+            term_sign = self._rank_sum(torch.sum(rews, dim=0)) >= 0.0
+            rew_pos = torch.sum(rews * term_sign, dim=-1)
+            rew_neg = torch.sum(rews * ~term_sign, dim=-1)
+            rew = torch.sum(rews, dim=-1)
+            if cfg.rewards.only_positive_rewards:
+                rew = torch.clamp(rew, min=0.0)
+            elif cfg.rewards.only_positive_rewards_ji22_style:
+                rew = rew_pos * torch.exp(rew_neg / cfg.rewards.sigma_rew_neg)
+            # termination reward after clipping; "total" excludes it (:348-353)
+            term_cols = []
+            if self.termination_scale:
+                term_rew = self.termination_scale * (done & ~time_out).float()
+                term_cols = [term_rew[:, None]]
+            episode_sums = state.episode_sums + torch.cat(
+                [rews] + term_cols + [rew[:, None], rew_pos[:, None], rew_neg[:, None]], dim=-1)
+            if self.termination_scale:
+                rew = rew + term_rew
 
         # exploration-scale decay (update_curriculum, :171-183)
         exp_lin, exp_yaw = state.exploration_lin_scale, state.exploration_yaw_scale
@@ -726,68 +732,72 @@ class LeggedEnv:
         }
 
         # ---- branchless auto-reset (reset_idx, :218-296) ----
-        rphys, ract, rtraj = self._reset_values(("step", 23), state.target_dist)
-        rms, rmo, rkp, rkd = self._sample_dof_props(("step", 24), (ms, mo, kp, kd))
-        d1 = done[:, None]
-        phys = PhysState(*(_sel(a, b, done) for a, b in zip(rphys, phys)))
-        act_state = type(act_state)(*(_sel(a, b, done) for a, b in zip(ract, act_state)))
-        trajectories = _sel(rtraj, state.trajectories, done)
-        ms, mo, kp, kd = (_sel(rms, ms, done), _sel(rmo, mo, done),
-                          _sel(rkp, kp, done), _sel(rkd, kd, done))
-        if dr.randomize_rigids_after_start:
-            rfr, rre, rpl, rco = self._sample_rigid_props(("step", 25), (fric, rest, payload, com))
-            fric, rest, payload, com = (_sel(rfr, fric, done), _sel(rre, rest, done),
-                                        _sel(rpl, payload, done), _sel(rco, com, done))
+        with tracing.span("env.reset"):
+            rphys, ract, rtraj = self._reset_values(("step", 23), state.target_dist)
+            rms, rmo, rkp, rkd = self._sample_dof_props(("step", 24), (ms, mo, kp, kd))
+            d1 = done[:, None]
+            phys = PhysState(*(_sel(a, b, done) for a, b in zip(rphys, phys)))
+            act_state = type(act_state)(*(_sel(a, b, done) for a, b in zip(ract, act_state)))
+            trajectories = _sel(rtraj, state.trajectories, done)
+            ms, mo, kp, kd = (_sel(rms, ms, done), _sel(rmo, mo, done),
+                              _sel(rkp, kp, done), _sel(rkd, kd, done))
+            if dr.randomize_rigids_after_start:
+                rfr, rre, rpl, rco = self._sample_rigid_props(("step", 25),
+                                                              (fric, rest, payload, com))
+                fric, rest, payload, com = (_sel(rfr, fric, done), _sel(rre, rest, done),
+                                            _sel(rpl, payload, done), _sel(rco, com, done))
 
-        idx2 = torch.where(done, 0, idx2)
-        ep_len_post = torch.where(done, 0, ep_len)
-        episode_sums = torch.where(d1, 0.0, episode_sums)
-        feet_air_time_post = torch.where(d1, 0.0, feet_air_time_post)
-        last_contacts = torch.where(d1, False, contact)
-        collision_count = torch.where(done, 0, collision_count)
-        plan_buf = torch.where(done, True, plan_buf)
-        local_rel_lin = torch.where(d1, 0.0, local_rel_lin)
-        local_rel_rot = torch.where(d1, 0.0, local_rel_rot)
+            idx2 = torch.where(done, 0, idx2)
+            ep_len_post = torch.where(done, 0, ep_len)
+            episode_sums = torch.where(d1, 0.0, episode_sums)
+            feet_air_time_post = torch.where(d1, 0.0, feet_air_time_post)
+            last_contacts = torch.where(d1, False, contact)
+            collision_count = torch.where(done, 0, collision_count)
+            plan_buf = torch.where(done, True, plan_buf)
+            local_rel_lin = torch.where(d1, 0.0, local_rel_lin)
+            local_rel_rot = torch.where(d1, 0.0, local_rel_rot)
 
         # ---- observations from the post-reset state (:357-469) ----
-        base_pos_o, base_quat_o = phys.base_pos, phys.base_quat
-        base_rpy_o = qt.quaternion_to_roll_pitch_yaw(base_quat_o)
-        base_lin_vel_o = qt.quat_rotate_inverse(base_quat_o, phys.v[:, :3])
-        base_ang_vel_o = qt.quat_rotate_inverse(base_quat_o, phys.v[:, 3:6])
-        proj_grav_o = qt.quat_rotate_inverse(
-            base_quat_o, (gravity_vec / norm(gravity_vec)).expand(N, 3))
-        target_o = self._select_waypoint(trajectories, idx2)
-        rel_lin_o, rel_rot_o = self._relative_pose(target_o, base_pos_o, base_quat_o, base_rpy_o)
-        commands_o = torch.where(d1, self._commands(target_o, rel_lin_o, rel_rot_o), commands)
-        local_target = torch.where(d1, target_o, local_target)
-        mh_o = self._get_heights(base_pos_o, base_rpy_o)
+        with tracing.span("env.observe"):
+            base_pos_o, base_quat_o = phys.base_pos, phys.base_quat
+            base_rpy_o = qt.quaternion_to_roll_pitch_yaw(base_quat_o)
+            base_lin_vel_o = qt.quat_rotate_inverse(base_quat_o, phys.v[:, :3])
+            base_ang_vel_o = qt.quat_rotate_inverse(base_quat_o, phys.v[:, 3:6])
+            proj_grav_o = qt.quat_rotate_inverse(
+                base_quat_o, (gravity_vec / norm(gravity_vec)).expand(N, 3))
+            target_o = self._select_waypoint(trajectories, idx2)
+            rel_lin_o, rel_rot_o = self._relative_pose(target_o, base_pos_o, base_quat_o,
+                                                       base_rpy_o)
+            commands_o = torch.where(d1, self._commands(target_o, rel_lin_o, rel_rot_o), commands)
+            local_target = torch.where(d1, target_o, local_target)
+            mh_o = self._get_heights(base_pos_o, base_rpy_o)
 
-        foot_z = contact_forces[:, list(self.feet_slots), 2]
-        heights = obs_lib.height_obs(cfg, mh_o, base_pos_o[:, 2], base_rpy_o[:, 1])
-        scalars = obs_lib.scalar_obs(
-            cfg, projected_gravity=proj_grav_o, commands=commands_o,
-            dof_pos=phys.qj, default_dof_pos=self.default_dof_pos,
-            dof_vel=phys.v[:, 6:], actions=actions, episode_length=ep_len_post)
-        obs = obs_lib.assemble_obs(
-            cfg, scalars, heights, base_lin_vel=base_lin_vel_o,
-            base_ang_vel=base_ang_vel_o, base_quat=base_quat_o,
-            last_actions=state.last_actions, foot_contact_z=foot_z)
-        if cfg.noise.add_noise:
-            noise = self.draw(("step", 26), (N, self.num_obs), -1.0, 1.0)
-            obs = obs + noise * self.noise_vec
-        obs = torch.clamp(obs, -cfg.normalization.clip_observations,
-                          cfg.normalization.clip_observations)
+            foot_z = contact_forces[:, list(self.feet_slots), 2]
+            heights = obs_lib.height_obs(cfg, mh_o, base_pos_o[:, 2], base_rpy_o[:, 1])
+            scalars = obs_lib.scalar_obs(
+                cfg, projected_gravity=proj_grav_o, commands=commands_o,
+                dof_pos=phys.qj, default_dof_pos=self.default_dof_pos,
+                dof_vel=phys.v[:, 6:], actions=actions, episode_length=ep_len_post)
+            obs = obs_lib.assemble_obs(
+                cfg, scalars, heights, base_lin_vel=base_lin_vel_o,
+                base_ang_vel=base_ang_vel_o, base_quat=base_quat_o,
+                last_actions=state.last_actions, foot_contact_z=foot_z)
+            if cfg.noise.add_noise:
+                noise = self.draw(("step", 26), (N, self.num_obs), -1.0, 1.0)
+                obs = obs + noise * self.noise_vec
+            obs = torch.clamp(obs, -cfg.normalization.clip_observations,
+                              cfg.normalization.clip_observations)
 
-        priv = obs_lib.privileged_obs(
-            cfg, friction=fric, restitution=rest, payload=payload,
-            com_displacement=com, motor_strength=ms, motor_offset=mo,
-            kp_factor=kp, kd_factor=kd, base_z=base_pos_o[:, 2],
-            base_lin_vel=base_lin_vel_o, gravity_vec=gravity_vec)
-        priv = torch.clamp(priv, -cfg.normalization.clip_observations,
-                           cfg.normalization.clip_observations)
+            priv = obs_lib.privileged_obs(
+                cfg, friction=fric, restitution=rest, payload=payload,
+                com_displacement=com, motor_strength=ms, motor_offset=mo,
+                kp_factor=kp, kd_factor=kd, base_z=base_pos_o[:, 2],
+                base_lin_vel=base_lin_vel_o, gravity_vec=gravity_vec)
+            priv = torch.clamp(priv, -cfg.normalization.clip_observations,
+                               cfg.normalization.clip_observations)
 
-        obs_history = torch.cat([state.obs_history[:, self.num_obs:],
-                                 obs.to(state.obs_history.dtype)], dim=-1)
+            obs_history = torch.cat([state.obs_history[:, self.num_obs:],
+                                     obs.to(state.obs_history.dtype)], dim=-1)
 
         # ---- action memory updates (:148-153; reset zeroing :246-248) ----
         new_state = EnvState(
@@ -823,6 +833,7 @@ class LeggedEnv:
         return new_state, StepOut(obs=obs, privileged_obs=priv, obs_history=obs_history,
                                   rew=rew, done=done, info=info)
 
+    @tracing.spanned("env.observe")
     def observe(self, state: EnvState):
         """Assemble {obs, privileged_obs, obs_history} from a state without
         stepping (reference get_observations / HistoryWrapper.reset)."""

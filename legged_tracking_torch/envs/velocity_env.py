@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..actuation import actuators
 from ..config import Cfg
 from ..physics.contact import ContactWindow
@@ -165,6 +166,7 @@ class VelocityTrackingEnv(LeggedEnv):
         return torch.cat([commands[:, :5], torch.stack([ph, of, bo], dim=1), commands[:, 8:]],
                          dim=1)
 
+    @tracing.spanned("env.curriculum")
     def _resample_commands(self, tag, state_weights, command_sums, ep_len,
                            old_cats, old_bins, old_commands, mask):
         """Batched _resample_commands (reference :728-845): the curriculum
@@ -217,6 +219,7 @@ class VelocityTrackingEnv(LeggedEnv):
             gait_indices=gait_indices, clock_inputs=clock_inputs)
         return obs, blv
 
+    @tracing.spanned("env.observe")
     def observe(self, state: EnvState):
         cfg = self.cfg
         phys = state.phys
@@ -256,6 +259,7 @@ class VelocityTrackingEnv(LeggedEnv):
         )
 
     # ----------------------------------------------------------------- step
+    @tracing.spanned("env.step")
     def step_fn(self, state: EnvState, actions: torch.Tensor):
         cfg = self.cfg
         dr = cfg.domain_rand
@@ -270,20 +274,21 @@ class VelocityTrackingEnv(LeggedEnv):
         prev_foot_velocities = state.foot_velocities
 
         # ---- physics: decimated control step ----
-        params = PhysParams(
-            friction=state.friction, restitution=state.restitution,
-            gravity=state.gravity_vec.expand(N, 3),
-            payload=state.payload, com_offset=state.com_displacement)
-        carry0 = (state.act, state.motor_strength, state.motor_offset,
-                  state.kp_factor, state.kd_factor, actions_scaled)
-        xs, ys, PX, PY = contact_window(terrain, state.phys.base_pos[:, :2],
-                                        cfg.sim.patch_x, cfg.sim.patch_y)
-        window = ContactWindow(self.tile_table, terrain.env_tile, xs, ys, PX, PY)
-        phys, carry, aux = control_step(
-            model, terrain, window, terrain.env_terrain_origin, state.phys,
-            self._torque_fn, carry0, params, cfg.sim.dt, cfg.control.decimation,
-            cfg.sim.contact_stiffness, cfg.sim.contact_damping,
-            cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
+        with tracing.span("env.physics"):
+            params = PhysParams(
+                friction=state.friction, restitution=state.restitution,
+                gravity=state.gravity_vec.expand(N, 3),
+                payload=state.payload, com_offset=state.com_displacement)
+            carry0 = (state.act, state.motor_strength, state.motor_offset,
+                      state.kp_factor, state.kd_factor, actions_scaled)
+            xs, ys, PX, PY = contact_window(terrain, state.phys.base_pos[:, :2],
+                                            cfg.sim.patch_x, cfg.sim.patch_y)
+            window = ContactWindow(self.tile_table, terrain.env_tile, xs, ys, PX, PY)
+            phys, carry, aux = control_step(
+                model, terrain, window, terrain.env_terrain_origin, state.phys,
+                self._torque_fn, carry0, params, cfg.sim.dt, cfg.control.decimation,
+                cfg.sim.contact_stiffness, cfg.sim.contact_damping,
+                cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
         act_state = carry[0]
         torques = aux.torques
         contact_forces = aux.contact_report
@@ -388,50 +393,51 @@ class VelocityTrackingEnv(LeggedEnv):
                            > cfg.rewards.terminal_body_ori)
 
         # ---- rewards ----
-        z3 = torch.zeros(N, 3, device=dev)
-        zb = torch.zeros(N, dtype=torch.bool, device=dev)
-        ctx = RewardCtx(
-            dt=self.dt, max_episode_length=float(cfg.env.max_episode_length),
-            base_pos=base_pos, base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
-            projected_gravity=projected_gravity, dof_pos=phys.qj, dof_vel=phys.v[:, 6:],
-            last_dof_vel=state.last_dof_vel, default_dof_pos=self.default_dof_pos,
-            dof_pos_soft_limits=self.dof_pos_soft_limits, torques=torques,
-            actions=actions, last_actions=state.last_actions,
-            contact_forces=contact_forces, penalised_slots=self.penalised_slots,
-            feet_slots=self.feet_slots,
-            relative_linear=z3, relative_rotation=z3, local_relative_linear=z3,
-            reached_buf=zb, plan_buf=zb, replan=zb, episode_length_buf=ep_len, reset_buf=done,
-            feet_air_time=feet_air_time, feet_first_contact=first_contact,
-            commands=commands, desired_contact_states=gait.desired_contact_states,
-            foot_positions=foot_positions, foot_velocities=foot_velocities,
-            prev_foot_velocities=prev_foot_velocities, foot_phase=gait.foot_indices,
-            joint_pos_target=act_state.joint_pos_target,
-            last_joint_pos_target=state.last_joint_pos_target,
-            last_last_joint_pos_target=state.last_last_joint_pos_target,
-            last_last_actions=state.last_last_actions, gravity_unit=g_unit,
-            feet_contact_filt=contact_filt, base_quat=base_quat)
-        terms = torch.stack([fn(ctx, cfg) for fn in self.reward_fns], dim=-1)
-        rews = terms * self._reward_scales_t
-        term_sign = self._rank_sum(torch.sum(rews, dim=0)) >= 0.0
-        rew_pos = torch.sum(rews * term_sign, dim=-1)
-        rew_neg = torch.sum(rews * ~term_sign, dim=-1)
-        rew = torch.sum(rews, dim=-1)
-        if cfg.rewards.only_positive_rewards:
-            rew = torch.clamp(rew, min=0.0)
-        elif cfg.rewards.only_positive_rewards_ji22_style:
-            # / sigma_rew_neg compiles to a multiply by its float32 reciprocal
-            inv = float(np.float32(1.0) / np.float32(cfg.rewards.sigma_rew_neg))
-            rew = rew_pos * torch.exp(rew_neg * inv)
-        # termination reward after clipping; "total" excludes it
-        # (compute_reward, legged_robot_trajectory_tracking.py:348-353)
-        term_cols = []
-        if self.termination_scale:
-            term_rew = self.termination_scale * (done & ~time_out).float()
-            term_cols = [term_rew[:, None]]
-        episode_sums = state.episode_sums + torch.cat(
-            [rews] + term_cols + [rew[:, None], rew_pos[:, None], rew_neg[:, None]], dim=-1)
-        if self.termination_scale:
-            rew = rew + term_rew
+        with tracing.span("env.rewards"):
+            z3 = torch.zeros(N, 3, device=dev)
+            zb = torch.zeros(N, dtype=torch.bool, device=dev)
+            ctx = RewardCtx(
+                dt=self.dt, max_episode_length=float(cfg.env.max_episode_length),
+                base_pos=base_pos, base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
+                projected_gravity=projected_gravity, dof_pos=phys.qj, dof_vel=phys.v[:, 6:],
+                last_dof_vel=state.last_dof_vel, default_dof_pos=self.default_dof_pos,
+                dof_pos_soft_limits=self.dof_pos_soft_limits, torques=torques,
+                actions=actions, last_actions=state.last_actions,
+                contact_forces=contact_forces, penalised_slots=self.penalised_slots,
+                feet_slots=self.feet_slots,
+                relative_linear=z3, relative_rotation=z3, local_relative_linear=z3,
+                reached_buf=zb, plan_buf=zb, replan=zb, episode_length_buf=ep_len, reset_buf=done,
+                feet_air_time=feet_air_time, feet_first_contact=first_contact,
+                commands=commands, desired_contact_states=gait.desired_contact_states,
+                foot_positions=foot_positions, foot_velocities=foot_velocities,
+                prev_foot_velocities=prev_foot_velocities, foot_phase=gait.foot_indices,
+                joint_pos_target=act_state.joint_pos_target,
+                last_joint_pos_target=state.last_joint_pos_target,
+                last_last_joint_pos_target=state.last_last_joint_pos_target,
+                last_last_actions=state.last_last_actions, gravity_unit=g_unit,
+                feet_contact_filt=contact_filt, base_quat=base_quat)
+            terms = torch.stack([fn(ctx, cfg) for fn in self.reward_fns], dim=-1)
+            rews = terms * self._reward_scales_t
+            term_sign = self._rank_sum(torch.sum(rews, dim=0)) >= 0.0
+            rew_pos = torch.sum(rews * term_sign, dim=-1)
+            rew_neg = torch.sum(rews * ~term_sign, dim=-1)
+            rew = torch.sum(rews, dim=-1)
+            if cfg.rewards.only_positive_rewards:
+                rew = torch.clamp(rew, min=0.0)
+            elif cfg.rewards.only_positive_rewards_ji22_style:
+                # / sigma_rew_neg compiles to a multiply by its float32 reciprocal
+                inv = float(np.float32(1.0) / np.float32(cfg.rewards.sigma_rew_neg))
+                rew = rew_pos * torch.exp(rew_neg * inv)
+            # termination reward after clipping; "total" excludes it
+            # (compute_reward, legged_robot_trajectory_tracking.py:348-353)
+            term_cols = []
+            if self.termination_scale:
+                term_rew = self.termination_scale * (done & ~time_out).float()
+                term_cols = [term_rew[:, None]]
+            episode_sums = state.episode_sums + torch.cat(
+                [rews] + term_cols + [rew[:, None], rew_pos[:, None], rew_neg[:, None]], dim=-1)
+            if self.termination_scale:
+                rew = rew + term_rew
 
         # command_sums for the curriculum (reference compute_reward :297-301:
         # the contact-shaped terms accumulate scale + rew)
@@ -455,45 +461,48 @@ class VelocityTrackingEnv(LeggedEnv):
         }
 
         # ---- auto-reset ----
-        rphys, ract, _ = self._reset_values(("step", 23), state.target_dist)
-        rms, rmo, rkp, rkd = self._sample_dof_props(("step", 24), (ms, mo, kp, kd))
-        d1 = done[:, None]
-        phys = PhysState(*(_sel(a, b, done) for a, b in zip(rphys, phys)))
-        act_state = type(act_state)(*(_sel(a, b, done) for a, b in zip(ract, act_state)))
-        ms, mo, kp, kd = (_sel(rms, ms, done), _sel(rmo, mo, done),
-                          _sel(rkp, kp, done), _sel(rkd, kd, done))
-        if dr.randomize_rigids_after_start:
-            rfr, rre, rpl, rco = self._sample_rigid_props(("step", 25), (fric, rest, payload, com))
-            fric, rest, payload, com = (_sel(rfr, fric, done), _sel(rre, rest, done),
-                                        _sel(rpl, payload, done), _sel(rco, com, done))
+        with tracing.span("env.reset"):
+            rphys, ract, _ = self._reset_values(("step", 23), state.target_dist)
+            rms, rmo, rkp, rkd = self._sample_dof_props(("step", 24), (ms, mo, kp, kd))
+            d1 = done[:, None]
+            phys = PhysState(*(_sel(a, b, done) for a, b in zip(rphys, phys)))
+            act_state = type(act_state)(*(_sel(a, b, done) for a, b in zip(ract, act_state)))
+            ms, mo, kp, kd = (_sel(rms, ms, done), _sel(rmo, mo, done),
+                              _sel(rkp, kp, done), _sel(rkd, kd, done))
+            if dr.randomize_rigids_after_start:
+                rfr, rre, rpl, rco = self._sample_rigid_props(("step", 25),
+                                                              (fric, rest, payload, com))
+                fric, rest, payload, com = (_sel(rfr, fric, done), _sel(rre, rest, done),
+                                            _sel(rpl, payload, done), _sel(rco, com, done))
 
-        # commands resample for reset envs (reset_idx -> _resample_commands)
-        weights, commands, bins, cats, command_sums = self._resample_commands(
-            ("step", 43), weights, command_sums, ep_len, cats, bins, commands, done)
-        gait_indices = torch.where(done, 0.0, gait.gait_indices)
+            # commands resample for reset envs (reset_idx -> _resample_commands)
+            weights, commands, bins, cats, command_sums = self._resample_commands(
+                ("step", 43), weights, command_sums, ep_len, cats, bins, commands, done)
+            gait_indices = torch.where(done, 0.0, gait.gait_indices)
 
-        ep_len_post = torch.where(done, 0, ep_len)
-        episode_sums = torch.where(d1, 0.0, episode_sums)
-        feet_air_time_post = torch.where(d1, 0.0, feet_air_time_post)
-        last_contacts = torch.where(d1, False, contact)
+            ep_len_post = torch.where(done, 0, ep_len)
+            episode_sums = torch.where(d1, 0.0, episode_sums)
+            feet_air_time_post = torch.where(d1, 0.0, feet_air_time_post)
+            last_contacts = torch.where(d1, False, contact)
 
         # ---- observations from the post-reset state ----
-        obs, blv_o = self._obs(phys, gravity_vec, commands, actions, state.last_actions,
-                               ep_len_post, contact_forces[:, self._feet, 2], gait_indices,
-                               gait.clock_inputs)
-        if cfg.noise.add_noise:
-            noise = self.draw(("step", 26), (N, self.num_obs), -1.0, 1.0)
-            obs = obs + noise * self.noise_vec
-        clip = cfg.normalization.clip_observations
-        obs = torch.clamp(obs, -clip, clip)
-        priv = obs_lib.privileged_obs(
-            cfg, friction=fric, restitution=rest, payload=payload,
-            com_displacement=com, motor_strength=ms, motor_offset=mo,
-            kp_factor=kp, kd_factor=kd, base_z=phys.base_pos[:, 2],
-            base_lin_vel=blv_o, gravity_vec=gravity_vec)
-        priv = torch.clamp(priv, -clip, clip)
-        obs_history = torch.cat([state.obs_history[:, self.num_obs:],
-                                 obs.to(state.obs_history.dtype)], dim=-1)
+        with tracing.span("env.observe"):
+            obs, blv_o = self._obs(phys, gravity_vec, commands, actions, state.last_actions,
+                                   ep_len_post, contact_forces[:, self._feet, 2], gait_indices,
+                                   gait.clock_inputs)
+            if cfg.noise.add_noise:
+                noise = self.draw(("step", 26), (N, self.num_obs), -1.0, 1.0)
+                obs = obs + noise * self.noise_vec
+            clip = cfg.normalization.clip_observations
+            obs = torch.clamp(obs, -clip, clip)
+            priv = obs_lib.privileged_obs(
+                cfg, friction=fric, restitution=rest, payload=payload,
+                com_displacement=com, motor_strength=ms, motor_offset=mo,
+                kp_factor=kp, kd_factor=kd, base_z=phys.base_pos[:, 2],
+                base_lin_vel=blv_o, gravity_vec=gravity_vec)
+            priv = torch.clamp(priv, -clip, clip)
+            obs_history = torch.cat([state.obs_history[:, self.num_obs:],
+                                     obs.to(state.obs_history.dtype)], dim=-1)
 
         new_state = state._replace(
             phys=phys, act=act_state,

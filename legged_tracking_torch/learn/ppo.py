@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..parallel import all_reduce_sum
 from .actor_critic import (ACArgs, ActorCriticCSE, normal_entropy, normal_kl,
                            normal_log_prob)
@@ -257,6 +258,7 @@ class PPO:
 
     # ------------------------------------------------------------- rollout
     @torch.no_grad()
+    @tracing.spanned("ppo.rollout")
     def rollout(self, env_state, obs_dict, action_noise=None, obs_rms=None):
         """T steps of (act -> env.step_fn -> store) (Runner.learn inner loop,
         ppo_cse/__init__.py:137-178).  ``obs_dict`` is carried across
@@ -276,34 +278,35 @@ class PPO:
         ac = self.ac
         steps, metrics, frames = [], [], []
         for t in range(T):
-            o = obs_dict["obs"]
-            h16 = obs_dict["obs_history"]
-            p = obs_dict["privileged_obs"]
-            if self.normalize_obs:
-                h16, obs_rms = (obs_rms.normalize(h16).to(h16.dtype),
-                                obs_rms.update(obs_dict["obs_history"],
-                                               all_reduce_sum if self.dp else None))
-            h = h16.float()
-            mean, std = ac.action_dist(o, p, h)
-            std = std.expand_as(mean)
-            if action_noise is not None:
-                eps = action_noise[t]
-            else:
-                # at the global width, the shard's rows kept
-                eps = torch.randn((self.num_envs_global,) + mean.shape[1:],
-                                  generator=self.generator, device=mean.device)
-                if self.shard is not None:
-                    eps = self.shard.shard_rows(eps)
-            actions = mean + std * eps
-            if self.n_eval:
-                # trailing eval envs act deterministically (Runner.learn,
-                # ppo_cse/__init__.py:160-167)
-                a_det = (ac.act_teacher(o, p, h) if self.args.eval_expert
-                         else ac.act_student(o, h))
-                is_eval = (self.env.env_ids() >= self.n_train)[:, None]
-                actions = torch.where(is_eval, a_det, actions)
-            log_prob = normal_log_prob(mean, std, actions)
-            value = ac.evaluate(o, p, h)
+            with tracing.span("ppo.act"):
+                o = obs_dict["obs"]
+                h16 = obs_dict["obs_history"]
+                p = obs_dict["privileged_obs"]
+                if self.normalize_obs:
+                    h16, obs_rms = (obs_rms.normalize(h16).to(h16.dtype),
+                                    obs_rms.update(obs_dict["obs_history"],
+                                                   all_reduce_sum if self.dp else None))
+                h = h16.float()
+                mean, std = ac.action_dist(o, p, h)
+                std = std.expand_as(mean)
+                if action_noise is not None:
+                    eps = action_noise[t]
+                else:
+                    # at the global width, the shard's rows kept
+                    eps = torch.randn((self.num_envs_global,) + mean.shape[1:],
+                                      generator=self.generator, device=mean.device)
+                    if self.shard is not None:
+                        eps = self.shard.shard_rows(eps)
+                actions = mean + std * eps
+                if self.n_eval:
+                    # trailing eval envs act deterministically (Runner.learn,
+                    # ppo_cse/__init__.py:160-167)
+                    a_det = (ac.act_teacher(o, p, h) if self.args.eval_expert
+                             else ac.act_student(o, h))
+                    is_eval = (self.env.env_ids() >= self.n_train)[:, None]
+                    actions = torch.where(is_eval, a_det, actions)
+                log_prob = normal_log_prob(mean, std, actions)
+                value = ac.evaluate(o, p, h)
             env_state, out = self.env.step_fn(env_state, actions)
             # timeout bootstrap (ppo_cse/ppo.py:86-89)
             rew = out.rew + self.args.gamma * value * out.info["time_outs"]
@@ -329,6 +332,7 @@ class PPO:
 
     # ----------------------------------------------------------------- GAE
     @torch.no_grad()
+    @tracing.spanned("ppo.gae")
     def compute_gae(self, traj: Transition, last_values):
         """(rollout_storage.compute_returns, :76-90): returns and the
         advantages normalized over the whole buffer (std with ddof 0)."""
@@ -422,6 +426,7 @@ class PPO:
         return mean(torch.maximum(torch.square(value - returns),
                                   torch.square(v_clipped - returns)))
 
+    @tracing.spanned("ppo.minibatch")
     def _minibatch_update(self, ts: TrainState, batch, pos=None, mb=None):
         """One minibatch step.  ``pos``, ``mb``: under data parallelism the
         samples' positions in the global minibatch of ``mb``."""
@@ -474,31 +479,34 @@ class PPO:
         n_train = (mb if self.dp else h.shape[0]) // 5 * 4
         adapt_opt_state = ts.adapt_opt_state
         ad_loss = ad_test = torch.zeros((), device=self.device)
-        for _ in range(a.num_adaptation_module_substeps):
-            with torch.no_grad():
-                target = ac.adaptation_target(p)
-            pred = ac.adapt(h)
-            if self.dp:
-                # the split by the sample's position in the global minibatch
-                sq = torch.square(pred - target)
-                train = (pos < n_train).reshape((-1,) + (1,) * (sq.ndim - 1))
-                d = math.prod(sq.shape[1:])
-                ad_loss = torch.sum(sq * train) / (n_train * d)
-                ad_test = torch.sum(sq.detach() * ~train) / ((mb - n_train) * d)
-            else:
-                ad_loss = torch.mean(torch.square(pred[:n_train] - target[:n_train]))
-                ad_test = torch.mean(torch.square(pred[n_train:] - target[n_train:])).detach()
-            ad_grads = torch.autograd.grad(ad_loss, list(params.values()),
-                                           allow_unused=True, materialize_grads=True)
-            ad_loss = ad_loss.detach()
-            if self.dp:
-                *ad_grads, ad_loss, ad_test = all_reduce_sum(list(ad_grads) + [ad_loss, ad_test])
-            adapt_opt_state = adam_step(params, ad_grads, adapt_opt_state,
-                                        a.adaptation_module_learning_rate)
+        with tracing.span("ppo.adapt"):
+            for _ in range(a.num_adaptation_module_substeps):
+                with torch.no_grad():
+                    target = ac.adaptation_target(p)
+                pred = ac.adapt(h)
+                if self.dp:
+                    # the split by the sample's position in the global minibatch
+                    sq = torch.square(pred - target)
+                    train = (pos < n_train).reshape((-1,) + (1,) * (sq.ndim - 1))
+                    d = math.prod(sq.shape[1:])
+                    ad_loss = torch.sum(sq * train) / (n_train * d)
+                    ad_test = torch.sum(sq.detach() * ~train) / ((mb - n_train) * d)
+                else:
+                    ad_loss = torch.mean(torch.square(pred[:n_train] - target[:n_train]))
+                    ad_test = torch.mean(torch.square(pred[n_train:] - target[n_train:])).detach()
+                ad_grads = torch.autograd.grad(ad_loss, list(params.values()),
+                                               allow_unused=True, materialize_grads=True)
+                ad_loss = ad_loss.detach()
+                if self.dp:
+                    *ad_grads, ad_loss, ad_test = all_reduce_sum(
+                        list(ad_grads) + [ad_loss, ad_test])
+                adapt_opt_state = adam_step(params, ad_grads, adapt_opt_state,
+                                            a.adaptation_module_learning_rate)
         stats = torch.stack([v_loss, surrogate_loss, ad_loss, ad_test, kl])
         return ts._replace(opt_state=opt_state, adapt_opt_state=adapt_opt_state,
                            learning_rate=lr), stats
 
+    @tracing.spanned("ppo.update")
     def update(self, ts: TrainState, traj: Transition, returns, advantages, perm=None,
                h0=None):
         """``num_learning_epochs`` passes over the buffer in

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..io.checkpoint import (adam_from_checkpoint, adam_to_checkpoint, export_policy_npz,
                              flax_params_to_state_dict, load_pickle, state_dict_to_flax_params)
 from .actor_critic import ACArgs
@@ -243,7 +244,8 @@ class Runner:
         """Drive training iterations.
 
         profile_dir: a torch.profiler trace of iterations 10-12 is written
-        there (``trace.json``, and the kernel table).  update_model=False
+        there (``trace.json``, with the program's spans of those iterations,
+        ``tracing.py``).  update_model=False
         rolls out without updating (reference --freeze_model): episodic
         metrics log as usual; the update, the curriculum and the periodic
         checkpoints are skipped."""
@@ -471,8 +473,8 @@ class Runner:
             torch.cuda.synchronize(self.device)
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        with open(os.path.join(profile_dir, "kernels.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        tracing.add_to_chrome_trace(path)
         print(f"profiler trace written to {profile_dir}")
 

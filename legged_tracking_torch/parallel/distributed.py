@@ -25,6 +25,8 @@ import socket
 import torch
 import torch.distributed as dist
 
+from .. import tracing
+
 
 def rank_device(device, local_rank: int | None = None) -> torch.device:
     """The device of a rank: ``cpu``, the named ``cuda:i``, or for a bare
@@ -117,7 +119,9 @@ def all_reduce_sum(tensors: list) -> list:
     :func:`flat` buffer, returned as new tensors of the inputs' shapes and
     dtypes.  Every rank receives the same bytes."""
     buf = flat(tensors)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    with tracing.span("dist.all_reduce") as s:
+        s.add("bytes", buf.numel() * buf.element_size())
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     return unflat(buf, tensors)
 
 

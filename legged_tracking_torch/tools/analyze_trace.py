@@ -22,15 +22,27 @@ A frame's line is the line it is at when it calls out of the port, where
 such as ``a * b`` runs no Python call, or a trace from elsewhere) it is the
 line of the function's ``def``.
 
+The program's spans (``tracing.py``; category ``program_span``, which
+``Runner.learn(profile_dir=...)`` writes into its trace) need no stacks:
+device time, launches (``cudaLaunchKernel*``, ``cuLaunchKernel*``) and syncs
+(``cudaStreamSynchronize``, ``cudaDeviceSynchronize``) are filed under the
+innermost span in flight when the runtime call was made, and each of the
+longest stretches with nothing on the device under the innermost span in
+flight at its middle; ``<no span>`` where none is.  The tracer's own sync
+counts ride on the spans (``syncs``, and ``sync_sites`` by ``file:line``):
+the table gives them beside the trace's, and the sites are listed.
+
 Prints device ms per iteration by file and by line (``--iters``: the
-iterations the trace holds), the kernels by name, and the device's busy
-time and idle share over the traced window; the last line is one JSON
-object with the same numbers.  Reads a file; runs nothing on a device.
+iterations the trace holds), the kernels by name, the device's busy time
+and idle share over the traced window, and, where the trace has spans, the
+table by span and the longest idle gaps; the last line is one JSON object
+with the same numbers.  Reads a file; runs nothing on a device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import glob
 import gzip
@@ -40,6 +52,11 @@ import re
 
 PORT = "legged_tracking_torch/"
 UNATTRIBUTED = "<unattributed>"
+NO_SPAN = "<no span>"
+SPAN_CAT = "program_span"
+LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel)")
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+GAPS = 10
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 _FRAME = re.compile(r"(.*)\((\d+)\): (.*)")
@@ -187,6 +204,75 @@ def kernel_files(events, tags=None) -> dict:
     return out
 
 
+def span_labels(spans):
+    """t -> the name of the innermost (shortest) of ``spans`` in flight at
+    host time t, or :data:`NO_SPAN`."""
+    points = sorted({e["ts"] for e in spans} | {e["ts"] + e["dur"] for e in spans})
+    labels = [(float("inf"), NO_SPAN)] * len(points)
+    for e in spans:
+        for i in range(bisect.bisect_left(points, e["ts"]),
+                       bisect.bisect_left(points, e["ts"] + e["dur"])):
+            labels[i] = min(labels[i], (e["dur"], e["name"]))
+
+    def label(t):
+        i = bisect.bisect_right(points, t) - 1
+        return labels[i][1] if i >= 0 else NO_SPAN
+    return label
+
+
+def idle_gaps(events, top: int = GAPS) -> list:
+    """The ``top`` longest stretches of the traced window (as
+    :func:`device_busy`'s) with nothing on the device: [(us, start, end)]."""
+    xs = _complete(events)
+    if not xs:
+        return []
+    lo, hi = min(e["ts"] for e in xs), max(e["ts"] + e.get("dur", 0) for e in xs)
+    gaps, prev = [], lo
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device_events(events)) + [(hi, hi)]:
+        if a > prev:
+            gaps.append((a - prev, prev, a))
+        prev = max(prev, b)
+    return sorted(gaps, reverse=True)[:top]
+
+
+def by_span(events) -> tuple[dict, list, collections.Counter]:
+    """The table by span, {name: {spans, host_us, device_us, launches,
+    syncs, tracer_syncs, bytes}} (``<no span>`` for what no span encloses),
+    the longest idle gaps [(name, us)], each by the innermost span in flight
+    (the module docstring), and the tracer's sync sites {(span, site):
+    syncs}, a site's path cut to the package's; ({}, [], {}) for a trace
+    with no spans."""
+    spans = [e for e in _complete(events) if e.get("cat") == SPAN_CAT]
+    if not spans:
+        return {}, [], collections.Counter()
+    label = span_labels(spans)
+    zero = lambda: {"spans": 0, "host_us": 0.0, "device_us": 0.0, "launches": 0, "syncs": 0,
+                    "tracer_syncs": 0, "bytes": 0}
+    table = collections.defaultdict(zero)
+    sites = collections.Counter()
+    for e in spans:
+        row, args = table[e["name"]], e.get("args", {})
+        row["spans"] += 1
+        row["host_us"] += e["dur"]
+        row["tracer_syncs"] += args.get("syncs", 0)
+        row["bytes"] += args.get("bytes", 0)
+        for site, n in args.get("sync_sites", {}).items():
+            i = site.rfind(PORT)
+            sites[(e["name"], site if i < 0 else site[i + len(PORT):])] += n
+    for e in _complete(events):
+        if e.get("cat") in RUNTIME_CATS:
+            if LAUNCH.match(e["name"]):
+                table[label(e["ts"])]["launches"] += 1
+            elif e["name"] in SYNCS:
+                table[label(e["ts"])]["syncs"] += 1
+    runtime = runtime_by_correlation(events)
+    for d in device_events(events):
+        call = runtime.get(d.get("args", {}).get("correlation"))
+        table[label(call["ts"]) if call is not None else NO_SPAN]["device_us"] += d["dur"]
+    gaps = [(label((a + b) / 2), us) for us, a, b in idle_gaps(events)]
+    return dict(table), gaps, sites
+
+
 def summarize(events, iters: int, top: int = 35) -> dict:
     """The numbers :func:`main` prints, per iteration where they are times."""
     tags = attribute(events)
@@ -195,6 +281,7 @@ def summarize(events, iters: int, top: int = 35) -> dict:
     busy = device_busy(events)
     total = sum(lines.values())
     kernels = sorted(kernels_by_name(events).items(), key=lambda kv: -kv[1][0])
+    spans, gaps, sites = by_span(events)
     ms = lambda us: us / iters / 1e3
     return {"iters": iters, "device_ms_per_iter": ms(total),
             "busy_ms_per_iter": ms(busy["busy_us"]), "window_ms_per_iter": ms(busy["window_us"]),
@@ -204,7 +291,17 @@ def summarize(events, iters: int, top: int = 35) -> dict:
             "by_line": [[t, ms(d)] for t, d in lines.most_common(top)],
             "kernels": [{"name": k, "ms_per_iter": ms(us), "count": n} for k, (us, n) in kernels[:top]],
             "kernel_files": {k: {f: ms(us) for f, us in files.most_common()}
-                             for k, files in kernel_files(events, tags).items()}}
+                             for k, files in kernel_files(events, tags).items()},
+            "by_span": [{"span": name, "spans": row["spans"] / iters,
+                         "host_ms_per_iter": ms(row["host_us"]),
+                         "device_ms_per_iter": ms(row["device_us"]),
+                         "launches": row["launches"] / iters, "syncs": row["syncs"] / iters,
+                         "tracer_syncs": row["tracer_syncs"] / iters,
+                         "bytes": row["bytes"] / iters}
+                        for name, row in sorted(spans.items(),
+                                                key=lambda kv: -kv[1]["device_us"])],
+            "idle_gaps": [[name, us / 1e3] for name, us in gaps],
+            "sync_sites": [[name, site, n / iters] for (name, site), n in sites.most_common(top)]}
 
 
 def main(argv=None):
@@ -232,6 +329,19 @@ def main(argv=None):
     print(f"\ntop {args.top} kernels (ms/iter, launches):")
     for k in s["kernels"]:
         print(f"  {k['ms_per_iter']:8.2f}  {k['count']:7d}  {k['name'][:100]}")
+    if s["by_span"]:
+        print("\nby span, per iter (spans, host ms, device ms, launches, syncs, the tracer's "
+              "syncs, bytes):")
+        for r in s["by_span"]:
+            print(f"  {r['spans']:7.1f}  {r['host_ms_per_iter']:9.2f}  "
+                  f"{r['device_ms_per_iter']:9.2f}  {r['launches']:9.1f}  {r['syncs']:7.1f}  "
+                  f"{r['tracer_syncs']:7.1f}  {r['bytes']:11.0f}  {r['span']}")
+        print(f"\nlongest {len(s['idle_gaps'])} idle gaps (ms, innermost span):")
+        for name, ms in s["idle_gaps"]:
+            print(f"  {ms:8.3f}  {name}")
+        print(f"\ntop {args.top} sync sites, the tracer's (syncs/iter, innermost span, line):")
+        for name, site, n in s["sync_sites"]:
+            print(f"  {n:8.2f}  {name}  {site}")
     print(json.dumps(s))
 
 

@@ -77,8 +77,10 @@ def torch_trace(extra=()):
     outside the port inside an aten op; its second share is a backward
     kernel, launched on the autograd thread by the node with that op's
     sequence number.  The scan line launches through ctypes, with no aten
-    op: its second share is a memcpy it launches itself.  ``extra`` events
-    are appended."""
+    op: its second share is a memcpy it launches itself.  Two program spans
+    enclose the first three lines' launches, ``env.step``, and inside it the
+    second line's launch and a sync, ``env.physics``.  ``extra`` events are
+    appended."""
     ev, corr, t_host, t_dev = [], 0, 0, 0
 
     def device(d, cat, name, tid, ts, call="cudaLaunchKernel"):
@@ -109,6 +111,13 @@ def torch_trace(extra=()):
                        "args": {"Sequence number": 40 + i, "Fwd thread id": 1}})
             device(second, "gpu_memset" if i == 3 else "kernel", f"b{i}", 11, 5010 + t_host)
         t_host += 200
+    ev += [{"ph": "X", "cat": "program_span", "name": "env.step", "pid": 1, "tid": 10, "ts": 0,
+            "dur": 450, "args": {"syncs": 0, "sync_sites": {}}},
+           {"ph": "X", "cat": "program_span", "name": "env.physics", "pid": 1, "tid": 10,
+            "ts": 190, "dur": 70,
+            "args": {"syncs": 1, "sync_sites": {"/w/legged_tracking_torch/physics/fk.py:48": 1}}},
+           {"ph": "X", "cat": "cuda_runtime", "name": "cudaStreamSynchronize", "pid": 1,
+            "tid": 10, "ts": 240, "dur": 5, "args": {}}]
     return {"traceEvents": ev + list(extra)}
 
 
@@ -174,6 +183,46 @@ def test_trace_idle_share_and_unattributed_time():
     assert s["busy_ms_per_iter"] == busy / 1e3 and s["window_ms_per_iter"] == window / 1e3
     assert s["idle_share"] == 1.0 - busy / window
     assert s["kernel_files"]["scan_heights_kernel2"] == {"terrain/scan.py": 1500 / 1e3}
+
+
+def test_trace_by_span_table(tmp_path, capsys):
+    """Device time, launches and syncs are filed under the innermost program
+    span in flight at their runtime call (a memcpy is no launch; what no
+    span encloses, the backward kernels among it, is ``<no span>``), and
+    the longest idle gaps under the innermost span at their middle; the
+    spans' own sync counts and sites and bytes are summed; a trace with no
+    stacks and no port frame needs nothing else."""
+    extra = [{"ph": "X", "cat": "program_span", "name": "env.observe", "pid": 1, "tid": 10,
+              "ts": 29990, "dur": 610, "args": {"syncs": 0, "sync_sites": {}, "bytes": 64}}]
+    for corr, (ts, dev) in enumerate([(30000, 30000), (30010, 30400)], start=950):
+        extra += [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": 1,
+                   "tid": 10, "ts": ts, "dur": 5, "args": {"correlation": corr}},
+                  {"ph": "X", "cat": "kernel", "name": f"late{corr}", "pid": 0, "tid": 7,
+                   "ts": dev, "dur": 100, "args": {"correlation": corr}}]
+    events = [e for e in torch_trace(extra)["traceEvents"] if e.get("cat") != "python_function"]
+    s = t_at.summarize(events, iters=2)
+    rows = {r["span"]: r for r in s["by_span"]}
+    assert rows["env.step"] == {"span": "env.step", "spans": 0.5, "host_ms_per_iter": 450 / 2e3,
+                                "device_ms_per_iter": (5000 + 1500 + 250) / 2e3,
+                                "launches": 1.0, "syncs": 0.0, "tracer_syncs": 0.0,
+                                "bytes": 0.0}
+    assert rows["env.physics"] == {"span": "env.physics", "spans": 0.5,
+                                   "host_ms_per_iter": 70 / 2e3, "device_ms_per_iter": 3000 / 2e3,
+                                   "launches": 0.5, "syncs": 0.5, "tracer_syncs": 0.5,
+                                   "bytes": 0.0}
+    assert rows["env.observe"]["device_ms_per_iter"] == 200 / 2e3
+    assert rows["env.observe"]["launches"] == 1.0 and rows["env.observe"]["bytes"] == 32
+    assert rows["<no span>"]["device_ms_per_iter"] == (2500 + 4600 + 900 + 20) / 2e3
+    assert rows["<no span>"]["launches"] == 2.0 and rows["<no span>"]["spans"] == 0
+    device_end = sum(a + b for _, _, a, b in LINES)
+    assert s["idle_gaps"] == [["<no span>", (30000 - device_end) / 1e3],
+                              ["env.observe", 0.3], ["env.observe", 0.1]]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    t_at.main([str(path), "--iters", "2"])
+    out = capsys.readouterr().out
+    assert s["sync_sites"] == [["env.physics", "physics/fk.py:48", 0.5]]
+    assert "by span, per iter" in out and "longest 3 idle gaps" in out and "fk.py:48" in out
 
 
 def launched(frame, kernel, ts, dur, corr):

@@ -40,10 +40,10 @@ from ..actuation import actuators
 from ..config import Cfg
 from ..parallel import Shard, all_reduce_sum
 from ..physics import model as go1_model
-from ..physics.contact import ContactWindow
-from ..physics.engine import PhysParams, PhysState, control_step
+from ..physics.engine import PhysParams, PhysState
+from ..physics.graph import PhysicsStep
 from ..rewards.containers import RewardCtx, get_container
-from ..terrain.heightfield import TerrainArrays, bf16_table, contact_window, to_cells
+from ..terrain.heightfield import TerrainArrays, bf16_table, to_cells
 from ..terrain.scan import scan_heights
 from ..terrain.tunnel import build_terrain
 from ..utils import quat as qt
@@ -153,6 +153,10 @@ class LeggedEnv:
             cfg.control.control_type, self.actuator_net, self.default_dof_pos,
             cfg.control.stiffness, cfg.control.damping,
             self.model.dof_effort, cfg.domain_rand.randomize_lag_timesteps)
+        self.physics_step = PhysicsStep(
+            self.model, self._torque_fn, cfg.sim.patch_x, cfg.sim.patch_y, cfg.sim.dt,
+            cfg.control.decimation, cfg.sim.contact_stiffness, cfg.sim.contact_damping,
+            cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
         self._traj_fn = TRAJ_FUNCTIONS[cfg.commands.traj_function]
         self._init_planner()
         self.state: EnvState | None = None
@@ -533,13 +537,30 @@ class LeggedEnv:
                 chunks.append(torch.all(torch.sqrt(r2) > 1.0, dim=-1))
         return torch.cat(chunks, dim=1)
 
+    def _physics_inputs(self, state: EnvState, actions_scaled: torch.Tensor):
+        """``(PhysState, PhysParams, carry)`` of the control step from
+        ``state``, with ``actions_scaled`` as the PD targets' offsets."""
+        params = PhysParams(
+            friction=state.friction, restitution=state.restitution,
+            gravity=state.gravity_vec.expand(self.num_envs, 3),
+            payload=state.payload, com_offset=state.com_displacement)
+        carry = (state.act, state.motor_strength, state.motor_offset,
+                 state.kp_factor, state.kd_factor, actions_scaled)
+        return state.phys, params, carry
+
+    def _physics(self, state: EnvState, actions_scaled: torch.Tensor):
+        """The decimated control step of every env: ``(PhysState, carry,
+        StepAux)`` of ``engine.control_step``, as one CUDA graph replay on
+        the card (``physics/graph.py``)."""
+        return self.physics_step(self.terrain, self.tile_table,
+                                 *self._physics_inputs(state, actions_scaled))
+
     @tracing.spanned("env.step")
     def step_fn(self, state: EnvState, actions: torch.Tensor):
         cfg = self.cfg
         dr = cfg.domain_rand
         N = self.num_envs
         dev = self.device
-        model, terrain = self.model, self.terrain
         norm = lambda x: torch.linalg.vector_norm(x, dim=-1)
 
         actions = torch.clamp(actions, -cfg.normalization.clip_actions,
@@ -548,21 +569,7 @@ class LeggedEnv:
             actions, cfg.control.action_scale, cfg.control.hip_scale_reduction)
 
         # ---- physics: decimated control step (reference step, :64-98) ----
-        with tracing.span("env.physics"):
-            params = PhysParams(
-                friction=state.friction, restitution=state.restitution,
-                gravity=state.gravity_vec.expand(N, 3),
-                payload=state.payload, com_offset=state.com_displacement)
-            carry0 = (state.act, state.motor_strength, state.motor_offset,
-                      state.kp_factor, state.kd_factor, actions_scaled)
-            xs, ys, PX, PY = contact_window(terrain, state.phys.base_pos[:, :2],
-                                            cfg.sim.patch_x, cfg.sim.patch_y)
-            window = ContactWindow(self.tile_table, terrain.env_tile, xs, ys, PX, PY)
-            phys, carry, aux = control_step(
-                model, terrain, window, terrain.env_terrain_origin, state.phys,
-                self._torque_fn, carry0, params, cfg.sim.dt, cfg.control.decimation,
-                cfg.sim.contact_stiffness, cfg.sim.contact_damping,
-                cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
+        phys, carry, aux = self._physics(state, actions_scaled)
         act_state = carry[0]
         torques = aux.torques
         contact_forces = aux.contact_report                       # (N, 17, 3)

@@ -26,13 +26,11 @@ import torch
 from .. import tracing
 from ..actuation import actuators
 from ..config import Cfg
-from ..physics.contact import ContactWindow
-from ..physics.engine import PhysParams, PhysState, control_step
+from ..physics.engine import PhysState
 from ..rewards.containers import RewardCtx, slots
 from ..tasks.curriculum import DeviceCurriculum
 from ..tasks.gaits import GaitState, step_contact_targets
-from ..terrain.heightfield import (TerrainArrays, contact_window, plane_terrain,
-                                   sample_height_nearest)
+from ..terrain.heightfield import TerrainArrays, plane_terrain, sample_height_nearest
 from ..terrain.legged_gym_terrains import build_velocity_terrain
 from ..utils import quat as qt
 from ..utils.math import norm as _norm
@@ -265,7 +263,7 @@ class VelocityTrackingEnv(LeggedEnv):
         dr = cfg.domain_rand
         N = self.num_envs
         dev = self.device
-        model, terrain = self.model, self.terrain
+        terrain = self.terrain
 
         actions = torch.clamp(actions, -cfg.normalization.clip_actions,
                               cfg.normalization.clip_actions)
@@ -274,21 +272,7 @@ class VelocityTrackingEnv(LeggedEnv):
         prev_foot_velocities = state.foot_velocities
 
         # ---- physics: decimated control step ----
-        with tracing.span("env.physics"):
-            params = PhysParams(
-                friction=state.friction, restitution=state.restitution,
-                gravity=state.gravity_vec.expand(N, 3),
-                payload=state.payload, com_offset=state.com_displacement)
-            carry0 = (state.act, state.motor_strength, state.motor_offset,
-                      state.kp_factor, state.kd_factor, actions_scaled)
-            xs, ys, PX, PY = contact_window(terrain, state.phys.base_pos[:, :2],
-                                            cfg.sim.patch_x, cfg.sim.patch_y)
-            window = ContactWindow(self.tile_table, terrain.env_tile, xs, ys, PX, PY)
-            phys, carry, aux = control_step(
-                model, terrain, window, terrain.env_terrain_origin, state.phys,
-                self._torque_fn, carry0, params, cfg.sim.dt, cfg.control.decimation,
-                cfg.sim.contact_stiffness, cfg.sim.contact_damping,
-                cfg.sim.joint_limit_stiffness, cfg.sim.joint_limit_damping)
+        phys, carry, aux = self._physics(state, actions_scaled)
         act_state = carry[0]
         torques = aux.torques
         contact_forces = aux.contact_report

@@ -69,12 +69,6 @@ def _quadform(W, v):
     return torch.sum(_mat3_vec(W, v) * v, dim=-1)
 
 
-def _one_hot(index, n, like):
-    """(n, len(index)) matrix with a 1 where row == index[col]."""
-    idx = torch.as_tensor(index, device=like.device)
-    return (torch.arange(n, device=like.device)[:, None] == idx[None, :]).to(like.dtype)
-
-
 def contact_forces(model: Go1Model, terrain: TerrainArrays, window: ContactWindow,
                    env_terrain_origin, bs: BodyState, W, friction, restitution,
                    stiffness: float, damping: float, dt: float,
@@ -148,10 +142,9 @@ def contact_forces(model: Go1Model, terrain: TerrainArrays, window: ContactWindo
     # per-body wrench at COM and per-slot report: the sphere->body and
     # sphere->slot maps are static, so the sums are one-hot matmuls
     torque = _cross(p_s - f.com_w[:, sb], force)
-    S_body = _one_hot(sb, model.num_bodies, force)                  # (nb, ns)
+    S_body = model.sphere_to_body                                   # (nb, ns)
     f_ext = torch.cat([torch.matmul(S_body, torque), torch.matmul(S_body, force)], dim=-1)
-    S_rep = _one_hot(model.sphere_report, model.num_report_bodies, force)  # (nr, ns)
-    report = torch.matmul(S_rep, force)
+    report = torch.matmul(model.sphere_to_report, force)            # (nr, ns) @ (N, ns, 3)
     return ContactOut(f_ext=f_ext, report=report, sphere_pos=p_s, sphere_vel=v_s)
 
 

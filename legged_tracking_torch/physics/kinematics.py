@@ -15,15 +15,6 @@ import torch
 from ..utils import quat
 from .model import Go1Model
 
-# static level structure: body indices per level (FR, FL, RR, RL order)
-LEVEL_BODIES = (
-    (1, 4, 7, 10),   # hips
-    (2, 5, 8, 11),   # thighs
-    (3, 6, 9, 12),   # calves
-)
-# permutation from [base, hips, thighs, calves] stacking order -> body order
-_STACK_TO_BODY = (0, 1, 5, 9, 2, 6, 10, 3, 7, 11, 4, 8, 12)
-
 
 class FK(NamedTuple):
     R: torch.Tensor         # (N, nb, 3, 3) body->world rotations
@@ -43,10 +34,9 @@ def fk(model: Go1Model, base_pos, base_quat, qj, base_com_offset=None) -> FK:
     ps = [base_pos[:, None]]
     R_prev = Rb[:, None].expand(N, 4, 3, 3)
     p_prev = base_pos[:, None].expand(N, 4, 3)
-    for level in range(3):
-        bodies = list(LEVEL_BODIES[level])
-        angles = qj[:, [b - 1 for b in bodies]]                # (N,4)
-        jp = model.joint_pos[bodies]                           # (4,3)
+    for level in range(3):   # model.py's LEVEL_BODIES, by their device twins
+        angles = qj[:, model.level_dofs[level]]                # (N,4)
+        jp = model.joint_pos[model.level_bodies[level]]        # (4,3)
         p_new = p_prev + torch.einsum("nlij,lj->nli", R_prev, jp)
         # Go1 joints are axis-aligned (hips about X, thighs/calves about Y),
         # so R_prev @ R_axis(q) is two column updates
@@ -60,7 +50,7 @@ def fk(model: Go1Model, base_pos, base_quat, qj, base_com_offset=None) -> FK:
         Rs.append(R_new)
         ps.append(p_new)
         R_prev, p_prev = R_new, p_new
-    perm = list(_STACK_TO_BODY)
+    perm = model.stack_to_body
     R = torch.cat(Rs, dim=1)[:, perm]                         # (N,13,3,3)
     p = torch.cat(ps, dim=1)[:, perm]
     com = model.com.expand(N, -1, -1)

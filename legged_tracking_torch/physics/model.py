@@ -1,7 +1,10 @@
 """Go1 rigid-body model as tensors on a device (port of ``physics/model.py``).
 
-The kinematic tree is fixed (13 bodies / 12 revolute DOFs / floating base),
-so the tree-structure arrays stay numpy and index the batched tensors.
+The kinematic tree is fixed (13 bodies / 12 revolute DOFs / floating base).
+The tree's own index arrays stay numpy, as the JAX package's are; whatever
+the physics indexes the batched tensors with (``sphere_body`` and the
+tables after it) is a device tensor built once here, so that a step copies
+nothing from the host (and can be captured in a CUDA graph, ``graph.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from . import go1_model_data as D
 
 
 class Go1Model(NamedTuple):
-    """Static model constants (float tensors on one device; index arrays numpy)."""
+    """Static model constants (tensors on one device; the tree's index arrays numpy)."""
 
     # tree
     parent: np.ndarray              # (nb,)
@@ -36,16 +39,42 @@ class Go1Model(NamedTuple):
     inertia: torch.Tensor           # (nb, 3, 3) about COM, body frame
 
     # collision spheres
-    sphere_body: np.ndarray         # (ns,) int
+    sphere_body: torch.Tensor       # (ns,) long
     sphere_ancestor_mask: torch.Tensor  # (ns, nd) dof-ancestry of each sphere's body
     sphere_offset: torch.Tensor     # (ns, 3)
     sphere_radius: torch.Tensor     # (ns,)
-    sphere_report: np.ndarray       # (ns,) report-slot index
     foot_sphere_idx: np.ndarray     # (4,) FR, FL, RR, RL
+
+    # the step's static index tables
+    sphere_leg: torch.Tensor        # (ns,) long: leg of the sphere's body (0 for the base)
+    sphere_leg_mask: torch.Tensor   # (ns, 3) sphere_ancestor_mask within that leg
+    sphere_to_body: torch.Tensor    # (nb, ns) one-hot of sphere_body
+    sphere_to_report: torch.Tensor  # (nr, ns) one-hot of D.SPHERE_REPORT
+    level_dofs: torch.Tensor        # (3, 4) long: the dofs of LEVEL_BODIES
+    level_bodies: torch.Tensor      # (3, 4) long: LEVEL_BODIES
+    stack_to_body: torch.Tensor     # (nb,) long: STACK_TO_BODY
+    leg_tril: torch.Tensor          # (3, 3) LEG_TRIL
 
     num_bodies: int = D.NUM_BODIES
     num_dof: int = D.NUM_DOF
     num_report_bodies: int = D.NUM_REPORT_BODIES
+
+
+# static level structure of FK: body indices per level (FR, FL, RR, RL order)
+LEVEL_BODIES = (
+    (1, 4, 7, 10),   # hips
+    (2, 5, 8, 11),   # thighs
+    (3, 6, 9, 12),   # calves
+)
+# permutation from [base, hips, thighs, calves] stacking order -> body order
+STACK_TO_BODY = (0, 1, 5, 9, 2, 6, 10, 3, 7, 11, 4, 8, 12)
+# lower-triangular (body-level >= joint-level) mask within a leg chain
+LEG_TRIL = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (1.0, 1.0, 1.0))
+
+
+def _one_hot(index, n) -> np.ndarray:
+    """(n, len(index)) matrix with a 1 where row == index[col]."""
+    return (np.arange(n)[:, None] == np.asarray(index)[None, :]).astype(np.float32)
 
 
 def _ancestor_mask() -> np.ndarray:
@@ -62,6 +91,11 @@ def _ancestor_mask() -> np.ndarray:
 
 def make_go1_model(device="cuda", dtype=torch.float32) -> Go1Model:
     f = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), dtype=dtype, device=device)
+    i = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+    sb = np.asarray(D.SPHERE_BODY)
+    ns = sb.shape[0]
+    sphere_leg = ((sb - 1) // 3).clip(0, 3)
+    sphere_mask = _ancestor_mask()[sb]
     return Go1Model(
         parent=np.asarray(D.PARENT),
         ancestor_mask=f(_ancestor_mask()),
@@ -75,12 +109,19 @@ def make_go1_model(device="cuda", dtype=torch.float32) -> Go1Model:
         mass=f(D.MASS),
         com=f(D.COM),
         inertia=f(D.INERTIA),
-        sphere_body=np.asarray(D.SPHERE_BODY),
-        sphere_ancestor_mask=f(_ancestor_mask()[np.asarray(D.SPHERE_BODY)]),
+        sphere_body=i(sb),
+        sphere_ancestor_mask=f(sphere_mask),
         sphere_offset=f(D.SPHERE_OFFSET),
         sphere_radius=f(D.SPHERE_RADIUS),
-        sphere_report=np.asarray(D.SPHERE_REPORT),
         foot_sphere_idx=np.asarray(D.FOOT_SPHERE_IDX),
+        sphere_leg=i(sphere_leg),
+        sphere_leg_mask=f(sphere_mask.reshape(ns, 4, 3)[np.arange(ns), sphere_leg]),
+        sphere_to_body=f(_one_hot(sb, D.NUM_BODIES)),
+        sphere_to_report=f(_one_hot(D.SPHERE_REPORT, D.NUM_REPORT_BODIES)),
+        level_dofs=i(np.asarray(LEVEL_BODIES) - 1),
+        level_bodies=i(LEVEL_BODIES),
+        stack_to_body=i(STACK_TO_BODY),
+        leg_tril=f(LEG_TRIL),
     )
 
 

@@ -31,14 +31,6 @@ from .dynamics import (BodyState, _mat3_vec, _world_inertia, quat_derivative,
                        spd_inverse)
 from .model import Go1Model
 
-# lower-triangular (body-level >= joint-level) mask within a leg chain
-_TRIL = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (1.0, 1.0, 1.0))
-
-
-def _tril(like):
-    return torch.tensor(_TRIL, dtype=like.dtype, device=like.device)
-
-
 def _cross(a, b):
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
@@ -73,13 +65,13 @@ class LegGeom(NamedTuple):
     x_base: torch.Tensor   # (N, 3)        c_0 - p_base
 
 
-def leg_geometry(f: kinematics.FK) -> LegGeom:
+def leg_geometry(model: Go1Model, f: kinematics.FK) -> LegGeom:
     N = f.p.shape[0]
     axes = f.axis_w.reshape(N, 4, 3, 3)
     anchors = f.anchor_w.reshape(N, 4, 3, 3)
     coms = f.com_w[:, 1:].reshape(N, 4, 3, 3)
     d = coms[:, :, :, None, :] - anchors[:, :, None, :, :]   # (N, 4, body, joint, 3)
-    k = _cross(axes[:, :, None, :, :], d) * _tril(d)[:, :, None]
+    k = _cross(axes[:, :, None, :, :], d) * model.leg_tril[:, :, None]
     return LegGeom(axes=axes, k=k, x_legs=coms - f.p[:, 0][:, None, None, :],
                    x_base=f.com_w[:, 0] - f.p[:, 0])
 
@@ -87,7 +79,7 @@ def leg_geometry(f: kinematics.FK) -> LegGeom:
 def body_velocities(model: Go1Model, f: kinematics.FK, v) -> BodyState:
     """Body angular/COM-linear world velocities via the chain recursion."""
     N = v.shape[0]
-    g = leg_geometry(f)
+    g = leg_geometry(model, f)
     u_b, w_b, qd = v[:, :3], v[:, 3:6], v[:, 6:]
     qd_l = qd.reshape(N, 4, 3)
     aq = g.axes * qd_l[..., None]                              # (N, 4, joint, 3)
@@ -118,7 +110,7 @@ def factorize(model: Go1Model, f: kinematics.FK, payload) -> Factorization:
     """Build the arrow blocks of M (J^T blkdiag(Iw, m) J restricted to its
     nonzero support) and the Schur factorization.  payload (N,)."""
     N = f.p.shape[0]
-    g = leg_geometry(f)
+    g = leg_geometry(model, f)
     mass = torch.cat([(model.mass[0] + payload)[:, None],
                       model.mass[1:].expand(N, -1)], dim=1)   # (N, nb)
     Iw = _world_inertia(f.R, model.inertia)                   # (N, nb, 3, 3)
@@ -126,7 +118,7 @@ def factorize(model: Go1Model, f: kinematics.FK, payload) -> Factorization:
     Iw_l = Iw[:, 1:].reshape(N, 4, 3, 3, 3)
     x_all = f.com_w - f.p[:, :1]                              # (N, nb, 3)
     I3 = torch.eye(3, dtype=f.p.dtype, device=f.p.device)
-    tril = _tril(f.p)
+    tril = model.leg_tril
 
     # ---- A (6x6): [u; w] base rows over ALL bodies ----
     m_tot = torch.sum(mass, dim=1)
@@ -187,7 +179,7 @@ def solve(fac: Factorization, rhs) -> torch.Tensor:
     return torch.cat([acc_b, qdd_l.reshape(N, 12)], dim=1)
 
 
-def project(g: LegGeom, n_i, f_i) -> torch.Tensor:
+def project(model: Go1Model, g: LegGeom, n_i, f_i) -> torch.Tensor:
     """Generalized force of per-body world wrenches [n_i; f_i] at body COMs:
     Q = sum_i J_i^T [n_i; f_i] without J.  n_i, f_i (N, nb, 3) -> (N, 18)."""
     N = n_i.shape[0]
@@ -199,7 +191,7 @@ def project(g: LegGeom, n_i, f_i) -> torch.Tensor:
     # Q_j = sum_{i>=j} a_j . n_i + k_ij . f_i
     ang = torch.sum(g.axes[:, :, None, :, :] * n_l[:, :, :, None, :], dim=-1)  # (N, 4, body, joint)
     lin = torch.sum(g.k * f_l[:, :, :, None, :], dim=-1)                      # (N, 4, body, joint)
-    Q_q = torch.sum(ang * _tril(ang) + lin, dim=2)                            # (N, 4, joint)
+    Q_q = torch.sum(ang * model.leg_tril + lin, dim=2)                       # (N, 4, joint)
     return torch.cat([Q_u, Q_w, Q_q.reshape(N, 12)], dim=1)
 
 
@@ -229,7 +221,7 @@ def forward_dynamics(model: Go1Model, base_pos, base_quat, qj, v, tau_j, f_ext,
     """Generalized accelerations (N, 18).  f_ext (N, nb, 6) world wrench
     [torque; force] at each body COM; gravity (N, 3); ``vp`` the optional
     precomputed (alpha_vp, acc_vp) of :func:`velocity_jvp`."""
-    g = leg_geometry(bs.fk)
+    g = leg_geometry(model, bs.fk)
     if vp is None:
         _, alpha_vp, acc_vp = velocity_jvp(model, base_pos, base_quat, qj, v, com_offset)
     else:
@@ -238,11 +230,11 @@ def forward_dynamics(model: Go1Model, base_pos, base_quat, qj, v, tau_j, f_ext,
     omega = bs.omega
     n_bias = _mat3_vec(fac.Iw, alpha_vp) + _cross(omega, _mat3_vec(fac.Iw, omega))
     f_bias = fac.mass[:, :, None] * acc_vp
-    Q_bias = project(g, n_bias, f_bias)
+    Q_bias = project(model, g, n_bias, f_bias)
 
     f_grav = fac.mass[:, :, None] * gravity[:, None, :]
-    Q_grav = project(g, torch.zeros_like(f_grav), f_grav)
-    Q_ext = project(g, f_ext[..., :3], f_ext[..., 3:])
+    Q_grav = project(model, g, torch.zeros_like(f_grav), f_grav)
+    Q_ext = project(model, g, f_ext[..., :3], f_ext[..., 3:])
 
     tau_gen = torch.cat([torch.zeros_like(tau_j[:, :6]), tau_j], dim=1)
     rhs = tau_gen + Q_grav + Q_ext - Q_bias
@@ -259,12 +251,12 @@ def apparent_masses(model: Go1Model, f: kinematics.FK, fac: Factorization) -> to
     eye = torch.eye(3, dtype=p_s.dtype, device=p_s.device).expand(N, ns, 3, 3)
     G_b = torch.cat([eye, -_skew(r0)], dim=-1)                # (N, ns, 3, 6)
 
-    leg_s = ((sb - 1) // 3).clip(0, 3)
+    leg_s = model.sphere_leg
     axes_s = f.axis_w.reshape(N, 4, 3, 3)[:, leg_s]           # (N, ns, joint, 3)
     anchors_s = f.anchor_w.reshape(N, 4, 3, 3)[:, leg_s]
     # per-leg columns of the sphere's ancestor joints (mask zeroes base
     # spheres and joints below the sphere's body)
-    mask = model.sphere_ancestor_mask.reshape(ns, 4, 3)[range(ns), leg_s]  # (ns, 3)
+    mask = model.sphere_leg_mask                              # (ns, 3)
     Gj = _cross(axes_s, p_s[:, :, None, :] - anchors_s) * mask[None, :, :, None]
     G_l = Gj.transpose(-1, -2)                                # (N, ns, 3, joint)
 

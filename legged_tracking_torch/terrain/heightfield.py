@@ -77,6 +77,17 @@ def inv_hs(hs: float) -> float:
     return float(np.float32(1.0) / np.float32(hs))
 
 
+@functools.lru_cache(maxsize=64)
+def grad_weights(hs: float) -> tuple:
+    """The bf16 weights of the bilinear x-derivative, ``(-1 / hs, 1 / hs)``
+    in float32 rounded to bf16 as the patch path rounds them, as Python
+    floats: a sampler multiplies by them as constants and copies nothing
+    to the device."""
+    inv = inv_hs(hs)
+    w = torch.tensor([-inv, inv], dtype=torch.float32).to(torch.bfloat16)
+    return tuple(w.float().tolist())
+
+
 def to_cells(x: torch.Tensor, hs: float) -> torch.Tensor:
     """``x / hs`` as the JAX package computes it under ``jit``: XLA folds a
     division by a constant into a multiply by its float32 reciprocal.  The
@@ -125,10 +136,9 @@ def sample_window_bilinear(table, env_tile, xs, ys, PX: int, PY: int, hs: float,
 
     # the two nonzero entries of each bf16 weight row (window columns x0, x0+1)
     bf = lambda a: a.to(torch.bfloat16).float()
-    inv = inv_hs(hs)
     wx = torch.stack([bf(1 - fx), bf(fx)], dim=-1)                     # (N, P, 2)
     wy = torch.stack([bf(1 - fy), bf(fy)], dim=-1)
-    dw = bf(torch.tensor([-inv, inv], dtype=x.dtype, device=x.device))  # (2,)
+    dw = grad_weights(hs)
 
     # cells (x0 + i, y0 + j) of the window, i, j in {0, 1}, both layers
     off = torch.arange(2, device=x.device, dtype=torch.int32)

@@ -24,13 +24,15 @@ line of the function's ``def``.
 
 The program's spans (``tracing.py``; category ``program_span``, which
 ``Runner.learn(profile_dir=...)`` writes into its trace) need no stacks:
-device time, launches (``cudaLaunchKernel*``, ``cuLaunchKernel*``) and syncs
-(``cudaStreamSynchronize``, ``cudaDeviceSynchronize``) are filed under the
-innermost span in flight when the runtime call was made, and each of the
+device time, kernels, launches (``cudaLaunchKernel*``, ``cuLaunchKernel*``)
+and syncs (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``) are filed
+under the innermost span in flight when the runtime call was made (a CUDA
+graph's kernels under its ``cudaGraphLaunch``, which is no launch here), and each of the
 longest stretches with nothing on the device under the innermost span in
 flight at its middle; ``<no span>`` where none is.  The tracer's own sync
 counts ride on the spans (``syncs``, and ``sync_sites`` by ``file:line``):
-the table gives them beside the trace's, and the sites are listed.
+the table gives them beside the trace's, and the sites are listed; so do
+the physics step's ``graph`` (a replay of its CUDA graph) and ``captures``.
 
 Prints device ms per iteration by file and by line (``--iters``: the
 iterations the trace holds), the kernels by name, the device's busy time
@@ -236,8 +238,10 @@ def idle_gaps(events, top: int = GAPS) -> list:
 
 
 def by_span(events) -> tuple[dict, list, collections.Counter]:
-    """The table by span, {name: {spans, host_us, device_us, launches,
-    syncs, tracer_syncs, bytes}} (``<no span>`` for what no span encloses),
+    """The table by span, {name: {spans, host_us, device_us, kernels,
+    launches, syncs, tracer_syncs, bytes, graph, captures}} (``<no span>`` for what
+    no span encloses; ``graph`` and ``captures`` the physics step's
+    counters, summed: spans that replayed its CUDA graph, and captures),
     the longest idle gaps [(name, us)], each by the innermost span in flight
     (the module docstring), and the tracer's sync sites {(span, site):
     syncs}, a site's path cut to the package's; ({}, [], {}) for a trace
@@ -246,8 +250,8 @@ def by_span(events) -> tuple[dict, list, collections.Counter]:
     if not spans:
         return {}, [], collections.Counter()
     label = span_labels(spans)
-    zero = lambda: {"spans": 0, "host_us": 0.0, "device_us": 0.0, "launches": 0, "syncs": 0,
-                    "tracer_syncs": 0, "bytes": 0}
+    zero = lambda: {"spans": 0, "host_us": 0.0, "device_us": 0.0, "kernels": 0, "launches": 0,
+                    "syncs": 0, "tracer_syncs": 0, "bytes": 0, "graph": 0, "captures": 0}
     table = collections.defaultdict(zero)
     sites = collections.Counter()
     for e in spans:
@@ -255,7 +259,8 @@ def by_span(events) -> tuple[dict, list, collections.Counter]:
         row["spans"] += 1
         row["host_us"] += e["dur"]
         row["tracer_syncs"] += args.get("syncs", 0)
-        row["bytes"] += args.get("bytes", 0)
+        for counter in ("bytes", "graph", "captures"):
+            row[counter] += args.get(counter, 0)
         for site, n in args.get("sync_sites", {}).items():
             i = site.rfind(PORT)
             sites[(e["name"], site if i < 0 else site[i + len(PORT):])] += n
@@ -268,7 +273,9 @@ def by_span(events) -> tuple[dict, list, collections.Counter]:
     runtime = runtime_by_correlation(events)
     for d in device_events(events):
         call = runtime.get(d.get("args", {}).get("correlation"))
-        table[label(call["ts"]) if call is not None else NO_SPAN]["device_us"] += d["dur"]
+        row = table[label(call["ts"]) if call is not None else NO_SPAN]
+        row["device_us"] += d["dur"]
+        row["kernels"] += d.get("cat") == "kernel"
     gaps = [(label((a + b) / 2), us) for us, a, b in idle_gaps(events)]
     return dict(table), gaps, sites
 
@@ -295,9 +302,10 @@ def summarize(events, iters: int, top: int = 35) -> dict:
             "by_span": [{"span": name, "spans": row["spans"] / iters,
                          "host_ms_per_iter": ms(row["host_us"]),
                          "device_ms_per_iter": ms(row["device_us"]),
-                         "launches": row["launches"] / iters, "syncs": row["syncs"] / iters,
+                         "kernels": row["kernels"] / iters, "launches": row["launches"] / iters, "syncs": row["syncs"] / iters,
                          "tracer_syncs": row["tracer_syncs"] / iters,
-                         "bytes": row["bytes"] / iters}
+                         "bytes": row["bytes"] / iters, "graph": row["graph"] / iters,
+                         "captures": row["captures"] / iters}
                         for name, row in sorted(spans.items(),
                                                 key=lambda kv: -kv[1]["device_us"])],
             "idle_gaps": [[name, us / 1e3] for name, us in gaps],
@@ -330,12 +338,14 @@ def main(argv=None):
     for k in s["kernels"]:
         print(f"  {k['ms_per_iter']:8.2f}  {k['count']:7d}  {k['name'][:100]}")
     if s["by_span"]:
-        print("\nby span, per iter (spans, host ms, device ms, launches, syncs, the tracer's "
-              "syncs, bytes):")
+        print("\nby span, per iter (spans, host ms, device ms, kernels, launches, syncs, the "
+              "tracer's syncs, bytes, graph replays, captures):")
         for r in s["by_span"]:
             print(f"  {r['spans']:7.1f}  {r['host_ms_per_iter']:9.2f}  "
-                  f"{r['device_ms_per_iter']:9.2f}  {r['launches']:9.1f}  {r['syncs']:7.1f}  "
-                  f"{r['tracer_syncs']:7.1f}  {r['bytes']:11.0f}  {r['span']}")
+                  f"{r['device_ms_per_iter']:9.2f}  {r['kernels']:9.1f}  {r['launches']:9.1f}  "
+                  f"{r['syncs']:7.1f}  "
+                  f"{r['tracer_syncs']:7.1f}  {r['bytes']:11.0f}  {r['graph']:6.1f}  "
+                  f"{r['captures']:5.1f}  {r['span']}")
         print(f"\nlongest {len(s['idle_gaps'])} idle gaps (ms, innermost span):")
         for name, ms in s["idle_gaps"]:
             print(f"  {ms:8.3f}  {name}")

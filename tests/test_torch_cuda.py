@@ -1,8 +1,9 @@
 """The port on the card: kernel B1 against its plain version (at the bench
 grid, and across the env and point counts where its blocking and staging
 change), and an env step on the card (kernels) against the same step on
-the CPU (plain versions), the deploy runtime and the actuator-net fit on
-the card against the CPU.  Every test here needs an NVIDIA card and skips
+the CPU (plain versions), the physics step's graph replay against its eager
+block, the deploy runtime and the actuator-net fit on the card against
+the CPU.  Every test here needs an NVIDIA card and skips
 without one, but for the one which holds that the deploy runtime refuses
 ``cuda`` where there is no card; the data-parallel tests across cards need
 four and skip with fewer.
@@ -439,19 +440,25 @@ def test_goal_train_iteration_on_card_is_finite(cuda_device):
     assert all(bool(torch.isfinite(v).all()) for v in obs.values())
 
 
-def velocity_env(num_envs, device, tiles=2):
+def velocity_cfg(num_envs, tiles=2):
     """scripts/train_velocity_tracking.py's configuration at ``num_envs``
     envs on tiles x tiles trimesh tiles of 50 x 50 cells, with commands
     resampled every 2 steps and 5-step episodes."""
     from legged_tracking_torch import train_velocity_tracking
-    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
 
     cfg = train_velocity_tracking.build_cfg(train_velocity_tracking.parse_args(
         ["--num_envs", str(num_envs), "--terrain_rows", str(tiles),
          "--terrain_cols", str(tiles)]))
     cfg.commands.resampling_time = 0.04
     cfg.env.episode_length_s = 0.1
-    return VelocityTrackingEnv(cfg, seed=3, device=device)
+    return cfg
+
+
+def velocity_env(num_envs, device, tiles=2):
+    """The velocity env of :func:`velocity_cfg`."""
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+
+    return VelocityTrackingEnv(velocity_cfg(num_envs, tiles), seed=3, device=device)
 
 
 @pytest.mark.cuda
@@ -773,3 +780,111 @@ def test_flat_sampler_and_stance_on_card(cuda_device):
     readings = chip_smoke.feet_only(s, report)
     _, failed = chip_smoke.calibration_checks(readings)
     assert failed == [], readings
+
+
+def physics_env(task, control_type, num_envs, device):
+    """The tunnel env on a single_path heightfield of 2 x 2 tiles, or the
+    velocity env on its 2 x 2 trimesh tiles, with ``control_type``."""
+    from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
+
+    cfg = tunnel_cfg(num_envs, 2) if task == "tunnel" else velocity_cfg(num_envs)
+    cfg.control.control_type = control_type
+    env_class = LeggedEnv if task == "tunnel" else VelocityTrackingEnv
+    return env_class(cfg, seed=3, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control_type", ["actuator_net", "P"])
+@pytest.mark.parametrize("task", ["tunnel", "velocity"])
+def test_physics_graph_replay_equals_eager(cuda_device, task, control_type):
+    """The env's physics step (``physics/graph.py``) at 16 envs for 8 steps
+    with auto-resets, on a tunnel heightfield and on the velocity env's
+    trimesh tiles, for both control types: each graph replay equals the
+    eager block on the same inputs bitwise; one capture serves every step;
+    step t's outputs are unchanged by step t+1's replay; a terrain of 8
+    envs (as ``set_shard`` leaves it) captures anew and a return to 16 once
+    more, each bitwise."""
+    from torch.utils._pytree import tree_leaves as leaves
+
+    from legged_tracking_torch.actuation import actuators
+
+    n = 16
+    env = physics_env(task, control_type, n, cuda_device)
+    cfg, step = env.cfg, env.physics_step
+    state = env.reset_fn(True)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    kept = None
+    for _ in range(8):
+        actions = torch.randn(n, env.num_actions, generator=g, device=cuda_device)
+        scaled = actuators.scale_actions(actions, cfg.control.action_scale,
+                                         cfg.control.hip_scale_reduction)
+        inputs = env._physics_inputs(state, scaled)
+        got = step(env.terrain, env.tile_table, *inputs)
+        want = step.eager(env.terrain, env.tile_table, *inputs)
+        assert len(leaves(got)) == 19
+        assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+        if kept is not None:
+            assert all(torch.equal(a, b) for a, b in zip(leaves(kept[0]), kept[1]))
+        kept = (got, [t.clone() for t in leaves(got)])
+        state, _ = env.step_fn(state, actions)
+    assert step.captures == 1
+
+    half = lambda x: type(x)(*(half(v) for v in x)) if hasattr(x, "_fields") else (
+        tuple(half(v) for v in x) if isinstance(x, tuple) else x[:n // 2])
+    t = env.terrain
+    terrain = t._replace(env_tile=t.env_tile[:n // 2], env_origin=t.env_origin[:n // 2],
+                         env_terrain_origin=t.env_terrain_origin[:n // 2])
+    for terr, ins, captures in ((terrain, half(inputs), 2), (t, inputs, 3)):
+        got = step(terr, env.tile_table, *ins)
+        want = step.eager(terr, env.tile_table, *ins)
+        assert step.captures == captures
+        assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["tunnel", "velocity"])
+def test_physics_step_makes_no_sync(cuda_device, task):
+    """One eager physics block (contact window and ``control_step``) and
+    one graph replay with its copies, at 16 envs after a warm-up, under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing raises."""
+    n = 16
+    env = physics_env(task, "actuator_net", n, cuda_device)
+    inputs = env._physics_inputs(env.reset_fn(True), torch.zeros(n, 12, device=cuda_device))
+    env.physics_step(env.terrain, env.tile_table, *inputs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env.physics_step.eager(env.terrain, env.tile_table, *inputs)
+        env.physics_step(env.terrain, env.tile_table, *inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert env.physics_step.captures == 1
+
+
+@pytest.mark.cuda
+def test_physics_graph_on_a_card_that_is_not_current(four_cards):
+    """Two envs of one process on two cards: card 0's physics step captures
+    first, then the last card's is captured and replayed while card 0 is
+    the current device (as a rank that never set its card would run it);
+    the last card's replays equal its eager block bitwise, on that card."""
+    from torch.utils._pytree import tree_leaves
+
+    first = physics_env("tunnel", "actuator_net", 16, torch.device("cuda", 0))
+    first.physics_step(first.terrain, first.tile_table,
+                       *first._physics_inputs(first.reset_fn(True),
+                                              torch.zeros(16, 12, device="cuda:0")))
+    assert first.physics_step.captures == 1
+    card = torch.device("cuda", four_cards - 1)
+    with torch.cuda.device(card):
+        env = physics_env("tunnel", "actuator_net", 16, card)
+        state = env.reset_fn(True)
+        g = torch.Generator(device=card).manual_seed(5)
+        scaled = 0.25 * torch.randn(16, env.num_actions, generator=g, device=card)
+        inputs = env._physics_inputs(state, scaled)
+        want = tree_leaves(env.physics_step.eager(env.terrain, env.tile_table, *inputs))
+    with torch.cuda.device(0):
+        for _ in range(2):
+            got = tree_leaves(env.physics_step(env.terrain, env.tile_table, *inputs))
+            assert all(a.device == card and torch.equal(a, b) for a, b in zip(got, want))
+    assert env.physics_step.captures == 1

@@ -98,9 +98,25 @@ def test_quat_and_math_match():
 
 def test_model_constants_match():
     """The Go1 model as tensors equals the JAX package's (a copied table),
-    and the contact report slots resolve the same body names."""
+    its device tables hold what they stand for (the spheres' report slots
+    as the one-hot ``sphere_to_report``), and the contact report slots
+    resolve the same body names."""
+    sb, sr = np.asarray(JM.sphere_body), np.asarray(JM.sphere_report)
+    twins = {
+        "sphere_leg": ((sb - 1) // 3).clip(0, 3),
+        "sphere_to_body": np.arange(13)[:, None] == sb[None, :],
+        "sphere_to_report": np.arange(17)[:, None] == sr[None, :],
+        "level_bodies": t_model.LEVEL_BODIES,
+        "level_dofs": np.asarray(t_model.LEVEL_BODIES) - 1,
+        "stack_to_body": t_model.STACK_TO_BODY,
+        "leg_tril": np.tril(np.ones((3, 3))),
+    }
+    twins["sphere_leg_mask"] = np.asarray(JM.sphere_ancestor_mask).reshape(-1, 4, 3)[
+        np.arange(48), twins["sphere_leg"]]
+    assert set(TM._fields) == set(JM._fields) - {"sphere_report"} | set(twins)
     for name in TM._fields:
-        a, b = getattr(TM, name), getattr(JM, name)
+        a = getattr(TM, name)
+        b = twins[name] if name in twins else getattr(JM, name)
         np.testing.assert_array_equal(a.numpy() if torch.is_tensor(a) else np.asarray(a),
                                       np.asarray(b), err_msg=name)
     for names in (["thigh", "calf", "base"], ["base"], ["foot"], ["calf", "foot"], []):

@@ -115,7 +115,8 @@ def torch_trace(extra=()):
             "dur": 450, "args": {"syncs": 0, "sync_sites": {}}},
            {"ph": "X", "cat": "program_span", "name": "env.physics", "pid": 1, "tid": 10,
             "ts": 190, "dur": 70,
-            "args": {"syncs": 1, "sync_sites": {"/w/legged_tracking_torch/physics/fk.py:48": 1}}},
+            "args": {"syncs": 1, "sync_sites": {"/w/legged_tracking_torch/physics/fk.py:48": 1},
+                     "graph": 1, "captures": 1}},
            {"ph": "X", "cat": "cuda_runtime", "name": "cudaStreamSynchronize", "pid": 1,
             "tid": 10, "ts": 240, "dur": 5, "args": {}}]
     return {"traceEvents": ev + list(extra)}
@@ -186,11 +187,14 @@ def test_trace_idle_share_and_unattributed_time():
 
 
 def test_trace_by_span_table(tmp_path, capsys):
-    """Device time, launches and syncs are filed under the innermost program
-    span in flight at their runtime call (a memcpy is no launch; what no
+    """Device time, kernels, launches and syncs are filed under the innermost
+    program span in flight at their runtime call (a memcpy is no launch nor
+    kernel; a CUDA graph's kernels count under its ``cudaGraphLaunch``,
+    which is no launch; what no
     span encloses, the backward kernels among it, is ``<no span>``), and
     the longest idle gaps under the innermost span at their middle; the
-    spans' own sync counts and sites and bytes are summed; a trace with no
+    spans' own sync counts and sites, bytes and the physics step's graph
+    replays and captures are summed; a trace with no
     stacks and no port frame needs nothing else."""
     extra = [{"ph": "X", "cat": "program_span", "name": "env.observe", "pid": 1, "tid": 10,
               "ts": 29990, "dur": 610, "args": {"syncs": 0, "sync_sites": {}, "bytes": 64}}]
@@ -199,17 +203,22 @@ def test_trace_by_span_table(tmp_path, capsys):
                    "tid": 10, "ts": ts, "dur": 5, "args": {"correlation": corr}},
                   {"ph": "X", "cat": "kernel", "name": f"late{corr}", "pid": 0, "tid": 7,
                    "ts": dev, "dur": 100, "args": {"correlation": corr}}]
+    extra += [{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "pid": 1, "tid": 10,
+               "ts": 250, "dur": 5, "args": {"correlation": 960}}]
+    extra += [{"ph": "X", "cat": "kernel", "name": f"node{k}", "pid": 0, "tid": 8,
+               "ts": 30020 + 40 * k, "dur": 20, "args": {"correlation": 960}} for k in range(2)]
     events = [e for e in torch_trace(extra)["traceEvents"] if e.get("cat") != "python_function"]
     s = t_at.summarize(events, iters=2)
     rows = {r["span"]: r for r in s["by_span"]}
     assert rows["env.step"] == {"span": "env.step", "spans": 0.5, "host_ms_per_iter": 450 / 2e3,
                                 "device_ms_per_iter": (5000 + 1500 + 250) / 2e3,
-                                "launches": 1.0, "syncs": 0.0, "tracer_syncs": 0.0,
-                                "bytes": 0.0}
+                                "kernels": 1.0, "launches": 1.0, "syncs": 0.0, "tracer_syncs": 0.0,
+                                "bytes": 0.0, "graph": 0.0, "captures": 0.0}
     assert rows["env.physics"] == {"span": "env.physics", "spans": 0.5,
-                                   "host_ms_per_iter": 70 / 2e3, "device_ms_per_iter": 3000 / 2e3,
-                                   "launches": 0.5, "syncs": 0.5, "tracer_syncs": 0.5,
-                                   "bytes": 0.0}
+                                   "host_ms_per_iter": 70 / 2e3,
+                                   "device_ms_per_iter": (3000 + 40) / 2e3,
+                                   "kernels": 1.5, "launches": 0.5, "syncs": 0.5, "tracer_syncs": 0.5,
+                                   "bytes": 0.0, "graph": 0.5, "captures": 0.5}
     assert rows["env.observe"]["device_ms_per_iter"] == 200 / 2e3
     assert rows["env.observe"]["launches"] == 1.0 and rows["env.observe"]["bytes"] == 32
     assert rows["<no span>"]["device_ms_per_iter"] == (2500 + 4600 + 900 + 20) / 2e3
@@ -223,6 +232,7 @@ def test_trace_by_span_table(tmp_path, capsys):
     out = capsys.readouterr().out
     assert s["sync_sites"] == [["env.physics", "physics/fk.py:48", 0.5]]
     assert "by span, per iter" in out and "longest 3 idle gaps" in out and "fk.py:48" in out
+    assert "graph replays, captures" in out
 
 
 def launched(frame, kernel, ts, dur, corr):

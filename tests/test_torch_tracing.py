@@ -2,8 +2,9 @@
 while the profiler is off; under the profiler, one span a layer and a step
 in a train iteration of the bench at 4 envs on 2 x 2 tiles (2 steps, one
 epoch of two minibatches), each child inside its parent and a span on the
-profiler's clock; sync warnings counted on the innermost span, other
-warnings shown; one record a profiler session."""
+profiler's clock; the physics step eager on the CPU, its span's ``graph``
+counter 0; sync warnings counted on the innermost span, other warnings
+shown; one record a profiler session."""
 
 import collections
 import inspect
@@ -12,9 +13,13 @@ import warnings
 
 import pytest
 import torch
+from torch.utils._pytree import tree_leaves
 
 from legged_tracking_torch import bench, tracing
 from legged_tracking_torch.learn.ppo import PPOArgs
+from legged_tracking_torch.physics.contact import ContactWindow
+from legged_tracking_torch.physics.engine import control_step
+from legged_tracking_torch.terrain.heightfield import contact_window
 
 STEPS, EPOCHS, MINIBATCHES = 2, 1, 2
 # (span, its parent) of a train iteration
@@ -81,6 +86,32 @@ def test_profiled_iteration_records_each_layer(short_train):
         assert parent.name == PARENTS[s.name] and s.parent < i
         assert parent.start_ns <= s.start_ns and s.end_ns <= parent.end_ns
     assert sum(s.syncs for s in spans) == 0
+
+
+def test_physics_step_is_eager_on_the_cpu(short_train):
+    """On the CPU the env's physics step (``physics/graph.py``) runs the
+    eager block: its outputs equal ``contact_window`` and ``control_step``
+    run as written, bitwise; nothing is captured; and its ``env.physics``
+    span carries ``graph`` 0 and no ``captures``."""
+    alg, (_, state, _) = short_train
+    env, cfg = alg.env, alg.env.cfg
+    actions = torch.linspace(-0.4, 0.4, env.num_envs * 12).reshape(env.num_envs, 12)
+    got, _ = profiled(lambda: env._physics(state, actions))
+    (span,) = [s for s in tracing.record() if s.name == "env.physics"]
+    assert span.counters == {"graph": 0} and env.physics_step.captures == 0
+
+    phys, params, carry = env._physics_inputs(state, actions)
+    xs, ys, PX, PY = contact_window(env.terrain, state.phys.base_pos[:, :2], cfg.sim.patch_x,
+                                    cfg.sim.patch_y)
+    window = ContactWindow(env.tile_table, env.terrain.env_tile, xs, ys, PX, PY)
+    want = control_step(env.model, env.terrain, window, env.terrain.env_terrain_origin,
+                        phys, env._torque_fn, carry, params, cfg.sim.dt,
+                        cfg.control.decimation, cfg.sim.contact_stiffness,
+                        cfg.sim.contact_damping, cfg.sim.joint_limit_stiffness,
+                        cfg.sim.joint_limit_damping)
+    flat = tree_leaves
+    assert len(flat(got)) == len(flat(want)) == 4 + 6 + 5 + 4
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
 
 
 def test_span_lies_on_the_profilers_clock(tmp_path):

@@ -18,7 +18,7 @@ class Modules(NamedTuple):
     Cfg: type
     config_go1: object
     envs: dict          # env_class name in a configuration file -> class
-    ACArgs: type
+    policies: dict      # policy name in a configuration file -> (argument class, class)
     PPO: type
     PPOArgs: type
     Shard: type
@@ -38,9 +38,10 @@ def build(mods: Modules, config: dict, num_envs: int, seed: int, device,
     """The env, PPO and train state of ``config`` at ``num_envs`` envs (the
     global count; ``rank_world`` makes the env that rank's shard), from
     ``seed`` split as :func:`manifest.seeds` says and used as the port's
-    Runner uses its seeds: the policy drawn under the CPU generator seeded
-    with ``init``, the env generator reseeded with ``env`` before the reset
-    with randomized episode lengths, then one observation."""
+    Runner uses its seeds: the policy (:func:`policy`) drawn under the CPU
+    generator seeded with ``init``, the env generator reseeded with ``env``
+    before the reset with randomized episode lengths, then one
+    observation."""
     s = manifest.seeds(seed)
     cfg = manifest.apply_config(mods.config_go1(mods.Cfg()), config, overrides)
     cfg.env.num_envs = num_envs
@@ -50,14 +51,27 @@ def build(mods: Modules, config: dict, num_envs: int, seed: int, device,
         env.set_shard(mods.Shard(rank_world[0], rank_world[1], num_envs))
     check_widths(env, config)
     ppo = mods.PPOArgs(**{**config["ppo"], **(ppo_overrides or {})})
-    ac = mods.ACArgs(**config["ac"])
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(s.init)
-        alg = mods.PPO(env, ac_args=ac, args=ppo, seed=s.act)
+        alg = mods.PPO(env, args=ppo, ac=policy(mods.policies, config, env), seed=s.act)
     ts = alg.init()
     env.generator.manual_seed(s.env)
     state = env.reset_fn(True)
     return Train(env, alg, ts, state, env.observe(state))
+
+
+def policy(table: dict, config: dict, env):
+    """The policy the configuration names (:func:`manifest.policy_name`),
+    from ``table`` (name -> (argument class, policy class)), at the env's
+    widths with the file's ``ac`` arguments, on the CPU; its weights come
+    from torch's global generator."""
+    name = manifest.policy_name(config)
+    if name not in table:
+        raise ValueError(f"configuration {config['name']}: no policy {name!r}; one of "
+                         f"{sorted(table)}")
+    args, cls = table[name]
+    return cls(env.num_obs, env.num_privileged_obs, env.num_obs_history, env.num_actions,
+               args(**config["ac"]))
 
 
 def check_widths(env, config: dict):

@@ -37,6 +37,12 @@ def config(name: str, root: str = BENCH_DIR) -> dict:
     return _load(root, "configs", name)
 
 
+def policy_name(config: dict) -> str:
+    """The policy class a configuration file names in ``policy``; the CSE
+    MLP where it names none."""
+    return config.get("policy", "ActorCriticCSE")
+
+
 def traffic(name: str, root: str = BENCH_DIR) -> dict:
     return _load(root, "traffic", name)
 

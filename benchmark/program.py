@@ -11,14 +11,17 @@ def modules():
     from legged_tracking_torch.config import Cfg, config_go1
     from legged_tracking_torch.envs import LeggedEnv
     from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv
-    from legged_tracking_torch.learn.actor_critic import ACArgs
+    from legged_tracking_torch.learn.actor_critic import ACArgs, ActorCriticCSE
+    from legged_tracking_torch.learn.actor_critic_cnn import ACCnnArgs, ActorCriticCNN
     from legged_tracking_torch.learn.ppo import PPO, PPOArgs
     from legged_tracking_torch.parallel import Shard
 
     from .build import Modules
     return Modules(Cfg, config_go1, {"LeggedEnv": LeggedEnv,
                                      "VelocityTrackingEnv": VelocityTrackingEnv},
-                   ACArgs, PPO, PPOArgs, Shard)
+                   {"ActorCriticCSE": (ACArgs, ActorCriticCSE),
+                    "ActorCriticCNN": (ACCnnArgs, ActorCriticCNN)},
+                   PPO, PPOArgs, Shard)
 
 
 def fault_targets():

@@ -1,9 +1,10 @@
 """The reference's learner: the rollout, GAE and the PPO update of the
 walk-these-ways PPO (ppo_cse/ppo.py, rollout_storage.py) written as their
-formulas in plain PyTorch, for the CSE policy of ``plain/learn``.  Adam is
-optax's, step by step: ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2)
-g^2``, ``p -= lr (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``.  The
-adaptive learning rate is a Python float, stepped by each minibatch's KL.
+formulas in plain PyTorch, for any policy of ``plain/learn`` (it calls
+``action_dist``, ``evaluate`` and ``adapt``).  Adam is optax's, step by
+step: ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g^2``, ``p -= lr (m
+/ (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``.  The adaptive learning
+rate is a Python float, stepped by each minibatch's KL.
 
 It covers the configurations' PPO: no held-out eval envs, no observation
 normalization, no windowed histories, ``randperm`` shuffling.
@@ -50,7 +51,7 @@ def log_prob(mean, std, a):
 
 
 def policy(ac, o, p, h):
-    """Action mean, std (expanded) and value of the CSE policy."""
+    """Action mean, std (expanded) and value of the policy."""
     mean, std = ac.action_dist(o, p, h)
     return mean, std.expand_as(mean), ac.evaluate(o, p, h)
 
@@ -170,9 +171,12 @@ def update(ac, args, learner: Learner, traj: dict, returns, advantages, perm,
 
 
 def supported(args: dict, ac_args: dict, cfg) -> None:
-    """Raise where the configuration asks for what this learner leaves out."""
+    """Raise where the configuration asks for what this learner or the plain
+    policies leave out."""
     off = {"cheap_shuffle": args["cheap_shuffle"], "windowed_history": args["windowed_history"],
            "normalize_obs": ac_args["normalize_obs"],
+           "use_decoder": ac_args.get("use_decoder", False),
+           "critic_detach_encoder": ac_args.get("critic_detach_encoder", False),
            "num_eval_envs": int(getattr(cfg.env, "num_eval_envs", 0) or 0),
            "schedule!=adaptive": args["schedule"] != "adaptive",
            "clipped value loss off": not args["use_clipped_value_loss"]}

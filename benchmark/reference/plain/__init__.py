@@ -9,7 +9,8 @@ formulation of ``physics/dynamics.py`` (the 18 x 18 mass matrix and its
 explicit inverse, in float64), where the program runs its arrow-structure
 solver; the height scan is the plain gather (no CUDA kernel); nothing is
 set at import (``benchmark/reference/train.py`` sets the precision).  The
-policy is ``learn/actor_critic.py``'s CSE MLP; the learner is
-``benchmark/reference/learner.py``.  The subpackages keep their relative
+policies, by the name a configuration gives (``learn.POLICIES``), are
+``learn/actor_critic.py``'s CSE MLP and ``learn/actor_critic_cnn.py``'s
+conv + GRU policy; the learner is ``benchmark/reference/learner.py``.  The subpackages keep their relative
 imports, so nothing here imports the program.
 """

@@ -1,11 +1,11 @@
 """The plain reference of a cell, and how it follows the program.
 
 The reference is the env of ``plain/`` (its physics solved by the dense
-rigid-body formulation, in float64) with the CSE policy of
-``plain/learn``, driven by :mod:`.learner`.  It is built from the cell's
-configuration file and seed, and draws its own terrain, weights and random
-numbers: it imports nothing of the program and takes nothing the program
-made.
+rigid-body formulation, in float64) with the policy the configuration
+names, from ``plain/learn`` (``POLICIES``), driven by :mod:`.learner`.  It
+is built from the cell's configuration file and seed, and draws its own
+terrain, weights and random numbers: it imports nothing of the program and
+takes nothing the program made.
 
 :func:`follow` checks the program's first train iteration against it:
 
@@ -23,9 +23,9 @@ made.
    the reference's own policy outputs and its own minibatch permutation.
 
 ``tf32=True`` computes the reference one precision lower (the control):
-TF32 matrix products on the card (on the CPU, which has no TF32, the
-policy's products on operands rounded to TF32's 10-bit mantissa), and the
-physics solved in float32.
+TF32 matrix products and convolutions on the card (on the CPU, which has
+no TF32, the policy's dense layers and convolutions on operands rounded to
+TF32's 10-bit mantissa), and the physics solved in float32.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def build_ref(config: dict, num_envs: int, seed: int, device, overrides: dict | 
     ``seed``, split into streams as :func:`benchmark.manifest.seeds` says
     and used as the program's build uses them (:func:`benchmark.build.build`)."""
     from .plain.config import Cfg, config_go1
-    from .plain.learn.actor_critic import ACArgs, ActorCriticCSE
+    from .plain.learn import POLICIES
 
     device = torch.device(device)
     s = manifest.seeds(seed)
@@ -75,8 +75,7 @@ def build_ref(config: dict, num_envs: int, seed: int, device, overrides: dict | 
     learner.supported(args, config["ac"], cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(s.init)
-        ac = ActorCriticCSE(env.num_obs, env.num_privileged_obs, env.num_obs_history,
-                            env.num_actions, ACArgs(**config["ac"])).to(device)
+        ac = build.policy(POLICIES, config, env).to(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(s.act)
     env.generator.manual_seed(s.env)
@@ -94,8 +93,9 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 @contextlib.contextmanager
 def precision(tf32: bool, ac: torch.nn.Module, device: torch.device):
-    """float32 matrix products and a float64 physics solve, or with
-    ``tf32`` the control: TF32 products and a float32 solve."""
+    """float32 matrix products and convolutions and a float64 physics
+    solve, or with ``tf32`` the control: TF32 products and convolutions and
+    a float32 solve."""
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     solve = engine.SOLVE_DTYPE
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
@@ -106,7 +106,13 @@ def precision(tf32: bool, ac: torch.nn.Module, device: torch.device):
             if isinstance(layer, torch.nn.Linear):
                 layer.forward = (lambda x, l=layer:
                                  F.linear(tf32_round(x), tf32_round(l.weight), l.bias))
-                emulated.append(layer)
+            elif isinstance(layer, torch.nn.Conv2d):
+                layer.forward = (lambda x, l=layer:
+                                 F.conv2d(tf32_round(x), tf32_round(l.weight), l.bias, l.stride,
+                                          l.padding, l.dilation, l.groups))
+            else:
+                continue
+            emulated.append(layer)
     try:
         yield
     finally:

@@ -18,6 +18,12 @@ checkpoints cross over:
 
 Submodules carry the flax names (``height_map_encoder.Conv_0``,
 ``gru.ir``, ...) so that :mod:`..io.checkpoint` maps them by name.
+
+Under the profiler, each call of :meth:`ActorCriticCNN.process_obs_history`
+records two spans of the port's tracer (:mod:`..tracing`):
+``policy.encoder`` around the height encoder (counter ``frames``: the B x H
+frames it embeds) and, with the GRU, ``policy.gru`` around the recurrence
+(counters ``steps``, H, and ``rows``, B).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from .. import tracing
 from .actor_critic import _ACT, MLP, _lecun_normal_, clamp_std
 
 
@@ -158,14 +165,20 @@ class ActorCriticCNN(nn.Module):
         """(B, H * num_obs) -> (B, policy_input_dim) (reference :179-198)."""
         B = obs_history.shape[0]
         frames = obs_history.reshape(B, -1, self.num_obs)
+        H = frames.shape[1]
         scalars = frames[:, :, :self.scalar_size]
-        emb = self.height_map_encoder(frames[:, :, self.scalar_size:])     # (B, H, E)
+        with tracing.span("policy.encoder") as span:
+            span.add("frames", B * H)
+            emb = self.height_map_encoder(frames[:, :, self.scalar_size:])     # (B, H, E)
         seq = torch.cat([scalars, emb], dim=-1)
         if self.args.use_gru:
-            latent = torch.zeros(B, self.args.gru_num_embedding, dtype=seq.dtype,
-                                 device=seq.device)
-            for t in range(seq.shape[1]):
-                latent = self.gru(latent, seq[:, t])
+            with tracing.span("policy.gru") as span:
+                span.add("steps", H)
+                span.add("rows", B)
+                latent = torch.zeros(B, self.args.gru_num_embedding, dtype=seq.dtype,
+                                     device=seq.device)
+                for t in range(H):
+                    latent = self.gru(latent, seq[:, t])
         else:
             latent = seq[:, -1]
         return torch.cat([scalars[:, -1], latent], dim=-1)

@@ -31,8 +31,11 @@ graph's kernels under its ``cudaGraphLaunch``, which is no launch here), and eac
 longest stretches with nothing on the device under the innermost span in
 flight at its middle; ``<no span>`` where none is.  The tracer's own sync
 counts ride on the spans (``syncs``, and ``sync_sites`` by ``file:line``):
-the table gives them beside the trace's, and the sites are listed; so do
-the physics step's ``graph`` (a replay of its CUDA graph) and ``captures``.
+the table gives them beside the trace's, and the sites are listed.  Every
+other argument of a span is a counter the code inside added (a
+collective's ``bytes``; the physics step's ``graph``, a replay of its CUDA
+graph, and ``captures``; the policy's ``frames``, ``steps`` and
+``rows``): the table sums each under its name, 0 for a span without it.
 
 Prints device ms per iteration by file and by line (``--iters``: the
 iterations the trace holds), the kernels by name, the device's busy time
@@ -56,6 +59,8 @@ PORT = "legged_tracking_torch/"
 UNATTRIBUTED = "<unattributed>"
 NO_SPAN = "<no span>"
 SPAN_CAT = "program_span"
+# a span's arguments that are no counter
+SPAN_OWN = ("syncs", "sync_sites")
 LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel)")
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 GAPS = 10
@@ -237,21 +242,27 @@ def idle_gaps(events, top: int = GAPS) -> list:
     return sorted(gaps, reverse=True)[:top]
 
 
+def span_counters(events) -> list:
+    """The names of the counters the trace's spans carry, sorted."""
+    return sorted({k for e in _complete(events) if e.get("cat") == SPAN_CAT
+                   for k in e.get("args", {}) if k not in SPAN_OWN})
+
+
 def by_span(events) -> tuple[dict, list, collections.Counter]:
     """The table by span, {name: {spans, host_us, device_us, kernels,
-    launches, syncs, tracer_syncs, bytes, graph, captures}} (``<no span>`` for what
-    no span encloses; ``graph`` and ``captures`` the physics step's
-    counters, summed: spans that replayed its CUDA graph, and captures),
-    the longest idle gaps [(name, us)], each by the innermost span in flight
-    (the module docstring), and the tracer's sync sites {(span, site):
-    syncs}, a site's path cut to the package's; ({}, [], {}) for a trace
-    with no spans."""
+    launches, syncs, tracer_syncs, and each of :func:`span_counters`}}
+    (``<no span>`` for what no span encloses; a counter summed over the
+    name's spans), the longest idle gaps [(name, us)], each by the
+    innermost span in flight (the module docstring), and the tracer's sync
+    sites {(span, site): syncs}, a site's path cut to the package's; ({},
+    [], {}) for a trace with no spans."""
     spans = [e for e in _complete(events) if e.get("cat") == SPAN_CAT]
     if not spans:
         return {}, [], collections.Counter()
     label = span_labels(spans)
+    counters = span_counters(spans)
     zero = lambda: {"spans": 0, "host_us": 0.0, "device_us": 0.0, "kernels": 0, "launches": 0,
-                    "syncs": 0, "tracer_syncs": 0, "bytes": 0, "graph": 0, "captures": 0}
+                    "syncs": 0, "tracer_syncs": 0, **dict.fromkeys(counters, 0)}
     table = collections.defaultdict(zero)
     sites = collections.Counter()
     for e in spans:
@@ -259,7 +270,7 @@ def by_span(events) -> tuple[dict, list, collections.Counter]:
         row["spans"] += 1
         row["host_us"] += e["dur"]
         row["tracer_syncs"] += args.get("syncs", 0)
-        for counter in ("bytes", "graph", "captures"):
+        for counter in counters:
             row[counter] += args.get(counter, 0)
         for site, n in args.get("sync_sites", {}).items():
             i = site.rfind(PORT)
@@ -289,6 +300,7 @@ def summarize(events, iters: int, top: int = 35) -> dict:
     total = sum(lines.values())
     kernels = sorted(kernels_by_name(events).items(), key=lambda kv: -kv[1][0])
     spans, gaps, sites = by_span(events)
+    counters = span_counters(events)
     ms = lambda us: us / iters / 1e3
     return {"iters": iters, "device_ms_per_iter": ms(total),
             "busy_ms_per_iter": ms(busy["busy_us"]), "window_ms_per_iter": ms(busy["window_us"]),
@@ -304,10 +316,10 @@ def summarize(events, iters: int, top: int = 35) -> dict:
                          "device_ms_per_iter": ms(row["device_us"]),
                          "kernels": row["kernels"] / iters, "launches": row["launches"] / iters, "syncs": row["syncs"] / iters,
                          "tracer_syncs": row["tracer_syncs"] / iters,
-                         "bytes": row["bytes"] / iters, "graph": row["graph"] / iters,
-                         "captures": row["captures"] / iters}
+                         **{c: row[c] / iters for c in counters}}
                         for name, row in sorted(spans.items(),
                                                 key=lambda kv: -kv[1]["device_us"])],
+            "span_counters": counters,
             "idle_gaps": [[name, us / 1e3] for name, us in gaps],
             "sync_sites": [[name, site, n / iters] for (name, site), n in sites.most_common(top)]}
 
@@ -339,13 +351,12 @@ def main(argv=None):
         print(f"  {k['ms_per_iter']:8.2f}  {k['count']:7d}  {k['name'][:100]}")
     if s["by_span"]:
         print("\nby span, per iter (spans, host ms, device ms, kernels, launches, syncs, the "
-              "tracer's syncs, bytes, graph replays, captures):")
+              f"tracer's syncs; counters: {', '.join(s['span_counters']) or 'none'}):")
         for r in s["by_span"]:
             print(f"  {r['spans']:7.1f}  {r['host_ms_per_iter']:9.2f}  "
                   f"{r['device_ms_per_iter']:9.2f}  {r['kernels']:9.1f}  {r['launches']:9.1f}  "
-                  f"{r['syncs']:7.1f}  "
-                  f"{r['tracer_syncs']:7.1f}  {r['bytes']:11.0f}  {r['graph']:6.1f}  "
-                  f"{r['captures']:5.1f}  {r['span']}")
+                  f"{r['syncs']:7.1f}  {r['tracer_syncs']:7.1f}  "
+                  + "".join(f"{r[c]:11.1f}  " for c in s["span_counters"]) + r["span"])
         print(f"\nlongest {len(s['idle_gaps'])} idle gaps (ms, innermost span):")
         for name, ms in s["idle_gaps"]:
             print(f"  {ms:8.3f}  {name}")

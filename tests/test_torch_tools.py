@@ -193,11 +193,15 @@ def test_trace_by_span_table(tmp_path, capsys):
     which is no launch; what no
     span encloses, the backward kernels among it, is ``<no span>``), and
     the longest idle gaps under the innermost span at their middle; the
-    spans' own sync counts and sites, bytes and the physics step's graph
-    replays and captures are summed; a trace with no
+    spans' own sync counts and sites are summed, and so is every counter a
+    span carries (bytes, the physics step's graph replays and captures, the
+    GRU's steps and rows), 0 where a span has none; a trace with no
     stacks and no port frame needs nothing else."""
     extra = [{"ph": "X", "cat": "program_span", "name": "env.observe", "pid": 1, "tid": 10,
-              "ts": 29990, "dur": 610, "args": {"syncs": 0, "sync_sites": {}, "bytes": 64}}]
+              "ts": 29990, "dur": 610, "args": {"syncs": 0, "sync_sites": {}, "bytes": 64}},
+             {"ph": "X", "cat": "program_span", "name": "policy.gru", "pid": 1, "tid": 10,
+              "ts": 28000, "dur": 500,
+              "args": {"syncs": 0, "sync_sites": {}, "steps": 15, "rows": 4096}}]
     for corr, (ts, dev) in enumerate([(30000, 30000), (30010, 30400)], start=950):
         extra += [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": 1,
                    "tid": 10, "ts": ts, "dur": 5, "args": {"correlation": corr}},
@@ -213,12 +217,19 @@ def test_trace_by_span_table(tmp_path, capsys):
     assert rows["env.step"] == {"span": "env.step", "spans": 0.5, "host_ms_per_iter": 450 / 2e3,
                                 "device_ms_per_iter": (5000 + 1500 + 250) / 2e3,
                                 "kernels": 1.0, "launches": 1.0, "syncs": 0.0, "tracer_syncs": 0.0,
-                                "bytes": 0.0, "graph": 0.0, "captures": 0.0}
+                                "bytes": 0.0, "graph": 0.0, "captures": 0.0, "rows": 0.0,
+                                "steps": 0.0}
     assert rows["env.physics"] == {"span": "env.physics", "spans": 0.5,
                                    "host_ms_per_iter": 70 / 2e3,
                                    "device_ms_per_iter": (3000 + 40) / 2e3,
                                    "kernels": 1.5, "launches": 0.5, "syncs": 0.5, "tracer_syncs": 0.5,
-                                   "bytes": 0.0, "graph": 0.5, "captures": 0.5}
+                                   "bytes": 0.0, "graph": 0.5, "captures": 0.5, "rows": 0.0,
+                                   "steps": 0.0}
+    assert rows["policy.gru"] == {"span": "policy.gru", "spans": 0.5,
+                                  "host_ms_per_iter": 500 / 2e3, "device_ms_per_iter": 0.0,
+                                  "kernels": 0.0, "launches": 0.0, "syncs": 0.0,
+                                  "tracer_syncs": 0.0, "bytes": 0.0, "graph": 0.0,
+                                  "captures": 0.0, "rows": 2048.0, "steps": 7.5}
     assert rows["env.observe"]["device_ms_per_iter"] == 200 / 2e3
     assert rows["env.observe"]["launches"] == 1.0 and rows["env.observe"]["bytes"] == 32
     assert rows["<no span>"]["device_ms_per_iter"] == (2500 + 4600 + 900 + 20) / 2e3
@@ -232,7 +243,8 @@ def test_trace_by_span_table(tmp_path, capsys):
     out = capsys.readouterr().out
     assert s["sync_sites"] == [["env.physics", "physics/fk.py:48", 0.5]]
     assert "by span, per iter" in out and "longest 3 idle gaps" in out and "fk.py:48" in out
-    assert "graph replays, captures" in out
+    assert "counters: bytes, captures, graph, rows, steps" in out
+    assert s["span_counters"] == ["bytes", "captures", "graph", "rows", "steps"]
 
 
 def launched(frame, kernel, ts, dur, corr):

@@ -194,3 +194,30 @@ def test_each_profiler_session_starts_a_record():
     second = tracing.record()
     assert [s.name for s in first] == ["a", "a"] and [s.name for s in second] == ["b"]
     assert second[0].counters == {"bytes": 8} and second[0].parent == -1
+
+
+def test_cnn_policy_spans_its_encoder_and_gru(monkeypatch):
+    """``ActorCriticCNN.process_obs_history`` (conv encoder and GRU) at B =
+    4 rows of H = 3 frames: under the profiler, one ``policy.encoder`` span
+    (``frames`` 12) and then one ``policy.gru`` span (``steps`` 3, ``rows``
+    4); with the profiler off, no clock read and nothing recorded."""
+    from legged_tracking_torch.learn.actor_critic_cnn import ACCnnArgs, ActorCriticCNN
+
+    torch.manual_seed(0)
+    ac = ActorCriticCNN(261, 8, 3 * 261, 12, ACCnnArgs(use_cnn=True, use_gru=True,
+                                                        height_map_shape=(2, 10, 11)))
+    history = torch.randn(4, 3 * 261)
+    with torch.no_grad():
+        want = ac.process_obs_history(history)
+        got, _ = profiled(lambda: ac.process_obs_history(history))
+        encoder, gru = tracing.record()
+        assert torch.equal(got, want)
+        assert (encoder.name, encoder.counters, encoder.parent) == ("policy.encoder",
+                                                                    {"frames": 12}, -1)
+        assert (gru.name, gru.counters, gru.parent) == ("policy.gru", {"steps": 3, "rows": 4}, -1)
+        assert encoder.end_ns <= gru.start_ns
+        reads = []
+        monkeypatch.setattr(tracing, "time_ns", lambda: reads.append(1) or 0)
+        before = tracing.record()
+        ac.process_obs_history(history)
+    assert reads == [] and tracing.record() is before and len(before) == 2

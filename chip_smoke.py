@@ -14,6 +14,13 @@ Phases of the one-card run, each printing one JSON line:
    the tiles), atol 0, and times both with CUDA events, beside two floors
    (the least kernel, ``torch.cuda._sleep(1)``, and a ``fill_`` of the
    output) and the kernel at half and twice its chosen envs per block.
+   conv-wgrad: kernel W1, the height encoder's conv weight gradients, at
+   the conv + GRU cell's shapes and the full scan's, against its float64
+   plain version (1e-5 of the largest |dW|), bitwise from launch to
+   launch, timed beside its bound, the plain version and cuDNN's
+   ``conv2d_weight`` (``library_ms``), the call the port no longer makes,
+   under its heuristic and under its search (``cudnn.benchmark``,
+   ``library_search_ms``).
 3. reference: steps a small env on the CPU (plain versions) and on the card
    (kernels) from the same state with the same random draws and holds the
    card's observations, rewards and base positions to the CPU's, within
@@ -57,7 +64,8 @@ Phases of the one-card run, each printing one JSON line:
    parameters, Adam moments, learning rate and losses are held to the
    CPU's within limits of 5 to 20 times the errors read on an H100.
 7. cnn-update-reference: the same for the goal configuration with
-   ``ActorCriticCNN`` (conv encoder and GRU).
+   ``ActorCriticCNN`` (conv encoder and GRU), and W1 launched twice for
+   each encoder backward of the update (three a minibatch).
 8. velocity-reference: the same for the velocity env (8 envs, curriculum
    resamples every 2 steps, 5-step episodes) with the CSE policy; the
    curriculum's weights, bins and categories and the commands bitwise.
@@ -177,7 +185,9 @@ Phases of the one-card run, each printing one JSON line:
 
 Then each phase's wall seconds and the kernel table (B1's launches on every
 path, eval, actuator-log, data-parallel, windowed and bench-entry paths
-included, and none on the velocity and deploy paths), each as one JSON
+included, and none on the velocity and deploy paths; W1's on the
+cnn-update-reference path, and none on the CSE and goal paths, the
+rollout and the forward-only eval and deploy paths), each as one JSON
 line, the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": ...}``.
 
@@ -371,7 +381,7 @@ def cuda_ms(fn, iters: int = 100, reps: int = 7) -> tuple[float, float]:
 def phase_build(card_line: str):
     from legged_tracking_torch.utils.cuda_build import KERNELS
     t0 = time.perf_counter()
-    KERNELS.build(["scan_heights"], force=True)
+    KERNELS.build(["scan_heights", "conv3x3_wgrad"], force=True)
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines() if "ptxas" in ln]
              for name, log in KERNELS.build_logs.items()}
@@ -512,6 +522,136 @@ def phase_kernels(dev, card_line: str):
           "launch_shape": dict(zip(("E", "blocks", "smem"), chosen)),
           "launch_shapes": shapes, "library_ms": None})
     return [row]
+
+
+# the conv + GRU cell's update (benchmark/configs/tunnel_cnn_gru.json): a
+# minibatch of 24,576 histories of 15 frames; frames of 261 floats, the
+# height block (2, 10, 11) after 41 scalars
+WGRAD_FRAMES = 24_576 * 15
+WGRAD_OBS, WGRAD_SCALARS = 261, 41
+
+
+def wgrad_inputs(dev, cin: int, cout: int, h: int, w: int, frames: int, seed: int):
+    """W1's inputs as the encoder's backward hands them: for 2 input
+    channels x a slice of observation rows (frame stride 261), else a
+    channels_last map; dy channels_last; normal draws from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cin == 2:
+        rows = torch.randn(frames, WGRAD_SCALARS + cin * h * w, generator=g, device=dev)
+        x = rows[:, WGRAD_SCALARS:].reshape(frames, h, w, cin).permute(0, 3, 1, 2)
+    else:
+        x = torch.randn(frames, h, w, cin, generator=g, device=dev).permute(0, 3, 1, 2)
+    dy = torch.randn(frames, h, w, cout, generator=g, device=dev).permute(0, 3, 1, 2)
+    return x, dy
+
+
+def wgrad_float64(x, dy, chunk: int = 16_384):
+    """W1's plain version in float64, over chunks of frames."""
+    from legged_tracking_torch.learn.conv3x3 import conv3x3_wgrad_reference
+
+    dw = db = 0
+    for i in range(0, x.shape[0], chunk):
+        a, b = conv3x3_wgrad_reference(x[i:i + chunk].double(), dy[i:i + chunk].double())
+        dw, db = dw + a, db + b
+    return dw, db
+
+
+def event_ms(fn, iters: int, warm: int = 2) -> float:
+    """Mean ms of ``iters`` back-to-back calls of ``fn`` between two CUDA
+    events, after ``warm`` calls: device time where the host queues ahead
+    of the card, as it does for a kernel of milliseconds; a call that
+    waits for the card (the plain version's large allocations) counts its
+    host time too."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def wgrad_bound(cin: int, cout: int, h: int, w: int, frames: int) -> dict:
+    """W1's least work: X and dY read once (the height block of X only),
+    dW and db written once; 2 flops a multiply-add."""
+    nbytes = 4 * frames * h * w * (cin + cout) + 4 * cout * (cin * 9 + 1)
+    flop = 2 * frames * h * w * cout * (cin * 9 + 1)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "flop": flop, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_conv_wgrad(dev, card_line: str):
+    """Kernel W1 at the conv + GRU cell's shapes (368,640 frames, both
+    convs) and at the full (2, 21, 11) scan's: its dW and db within 1e-5 of
+    the largest |dW| (|db|) of the float64 plain version, two launches
+    bitwise equal, and its time beside its bound, the plain version's and
+    cuDNN's (``torch.nn.grad.conv2d_weight``, the call the port no longer
+    makes: ``library_ms``; ``library_search_ms`` with ``cudnn.benchmark``,
+    the fastest algorithm cuDNN's search finds).  Returns W1's row of the
+    kernel table, the shapes' rows in it."""
+    import torch
+
+    from legged_tracking_torch.learn import conv3x3 as c3
+
+    rows = []
+    for cin, cout, h, w in ((2, 16, 10, 11), (16, 32, 5, 5), (2, 16, 21, 11), (16, 32, 10, 5)):
+        frames = WGRAD_FRAMES
+        x, dy = wgrad_inputs(dev, cin, cout, h, w, frames, seed=cin * 1000 + h)
+        before = c3.conv3x3_wgrad.launches
+        dw, db = c3.conv3x3_wgrad(x, dy)
+        dw2, db2 = c3.conv3x3_wgrad(x, dy)
+        torch.cuda.synchronize()
+        launches = c3.conv3x3_wgrad.launches - before
+        ref_dw, ref_db = wgrad_float64(x, dy)
+        err = {"dw": float((dw.double() - ref_dw).abs().max() / ref_dw.abs().max()),
+               "db": float((db.double() - ref_db).abs().max() / ref_db.abs().max())}
+        bitwise = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
+        if max(err.values()) > 1e-5 or not bitwise or launches != 2:
+            raise AssertionError(f"conv3x3_wgrad {cin} -> {cout} on {h} x {w}: relative errors "
+                                 f"{err} (limit 1e-5), repeat bitwise {bitwise}, "
+                                 f"{launches} launches counted of 2")
+        del dw, db, dw2, db2, ref_dw, ref_db
+        plan = c3.launch_plan(cin, cout, h, w, frames, dev.index or 0)
+        ms = event_ms(lambda: c3._launch(x, dy), iters=30)
+        weight = torch.empty((cout, cin, 3, 3), device=dev)
+
+        def library():
+            return torch.nn.grad.conv2d_weight(x, weight.shape, dy, padding=1)
+
+        library_ms = event_ms(library, iters=5)
+        searched = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            library_search_ms = event_ms(library, iters=5)      # the search in the warm-up
+        finally:
+            torch.backends.cudnn.benchmark = searched
+        plain_ms = event_ms(lambda: c3.conv3x3_wgrad_reference(x, dy), iters=2, warm=1)
+        bound = wgrad_bound(cin, cout, h, w, frames)
+        row = {"name": "conv3x3_wgrad", "route": "cuda",
+               "source": "legged_tracking_torch/csrc/conv3x3_wgrad.cu", "replaces": None,
+               "shape": {"cin": cin, "cout": cout, "h": h, "w": w, "frames": frames},
+               "launch_shape": dict(zip(("slots", "per_slot", "blocks"), plan)),
+               "rel_err": err, "bitwise_repeat": bitwise, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_search_ms": library_search_ms,
+               "bound_ms": bound["bound_ms"],
+               "bound_by": bound["bound_by"], "bound_share": bound["bound_ms"] / ms,
+               "tflops": bound["flop"] / ms / 1e9}
+        emit({"phase": "conv_wgrad", "ok": True, "card": card_line, **row})
+        rows.append({k: row[k] for k in ("shape", "launch_shape", "ms", "bound_ms", "plain_ms",
+                                         "library_ms", "library_search_ms")})
+        del x, dy
+        torch.cuda.empty_cache()
+    return {"name": "conv3x3_wgrad", "route": "cuda",
+            "source": "legged_tracking_torch/csrc/conv3x3_wgrad.cu", "replaces": None,
+            "shapes": rows}
 
 
 def phase_kernels_per_card(cards: list):
@@ -1409,9 +1549,22 @@ def phase_cnn_update_reference(dev, card_line: str):
     tol = {"params_rms_rel": 5e-3, "params_leaf_rms_rel": 3e-2, "opt_state": 2e-2,
            "adapt_opt_state": 1e-2, "learning_rate": 0.0, "losses": 2e-4}
     from legged_tracking_torch.envs import LeggedEnv
+    from legged_tracking_torch.learn import conv3x3
+    from legged_tracking_torch.learn.ppo import PPOArgs
+
+    before = conv3x3.conv3x3_wgrad.launches
     update_reference(dev, card_line, "cnn_update_reference",
                      lambda d: LeggedEnv(train.build_cfg(args), seed=3, device=d),
                      lambda env: train.make_policy(args, env.cfg, env), tol)
+    # W1 for both convs in each encoder backward: action_dist and evaluate
+    # under the loss, then adapt under each adaptation substep, every
+    # minibatch of every epoch (the CPU's side runs the plain version)
+    a = PPOArgs()
+    want = 2 * (2 + a.num_adaptation_module_substeps) * a.num_learning_epochs * a.num_mini_batches
+    launches = conv3x3.conv3x3_wgrad.launches - before
+    if launches != want:
+        raise AssertionError(f"cnn_update_reference: conv3x3_wgrad launched {launches} times "
+                             f"in the card's train_iteration, not {want}")
 
 
 def velocity_state_errs(s_cpu, s_card) -> dict:
@@ -3009,13 +3162,21 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     card_line = card()
 
+    from legged_tracking_torch.learn import conv3x3
+
     # wall seconds of each phase, set-up included: the run has to stay
-    # well inside its time limit as phases are added
-    seconds = {}
-    timed = functools.partial(clocked_phase, seconds)
+    # well inside its time limit as phases are added; W1's launches in each
+    seconds, w1 = {}, {}
+
+    def timed(name, fn, *args, **kwargs):
+        before = conv3x3.conv3x3_wgrad.launches
+        out = clocked_phase(seconds, name, fn, *args, **kwargs)
+        w1[name] = conv3x3.conv3x3_wgrad.launches - before
+        return out
 
     timed("build", phase_build, card_line)
     rows = timed("kernels", phase_kernels, dev, card_line)
+    wgrad = timed("conv_wgrad", phase_conv_wgrad, dev, card_line)
     timed("reference", phase_reference, dev, card_line)
     timed("physics_oracle", phase_physics_oracle, dev, card_line)
     by_path = {"rollout": timed("rollout", phase_rollout, dev, card_line, args.profile)}
@@ -3069,6 +3230,16 @@ def main(argv=None) -> int:
             raise AssertionError(f"{row['name']} was not launched on every path of its own, "
                                  f"or was on another: {row['launches_by_path']}, "
                                  f"{row['launches_off_path']}")
+    # W1 runs in the conv encoder's backward only: the conv + GRU policy's
+    # update, and no CSE or MLP-encoder path and no forward-only one
+    wgrad["launches_by_path"] = {"cnn_update_reference": w1["cnn_update_reference"]}
+    wgrad["launches_off_path"] = {path: w1[path] for path in (
+        "rollout", "update_reference", "train", "train_goal", "train_velocity", "eval", "deploy")}
+    wgrad["launches"] = w1["cnn_update_reference"]
+    if any(wgrad["launches_off_path"].values()):
+        raise AssertionError(f"conv3x3_wgrad was launched off its path: "
+                             f"{wgrad['launches_off_path']}")
+    rows.append(wgrad)
     emit({"kernels": rows, "card": card_line})
     print(card_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 ``learn/actor_critic_cnn.py``, the ppo_cse_cnn variant).
 
 A ``HeightMapEncoder`` (an MLP by default, or conv 16 -> 32 with 2x2 max
-pooling and a linear layer) embeds the height block of each history frame;
+pooling and a linear layer; the convs' weight gradients come from kernel
+W1, :mod:`.conv3x3`) embeds the height block of each history frame;
 an optional GRU runs over the (scalars ⊕ embedding) frames; the policy reads
 the last frame's scalars ⊕ the last latent.  The adaptation, actor and critic
 heads then match the CSE variant.
@@ -37,6 +38,7 @@ from torch import nn
 
 from .. import tracing
 from .actor_critic import _ACT, MLP, _lecun_normal_, clamp_std
+from .conv3x3 import conv3x3
 
 
 @dataclass
@@ -107,8 +109,8 @@ class HeightMapEncoder(nn.Module):
         if self.use_cnn:
             # the JAX module's NHWC reading of the channel-major block
             x = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
-            x = nn.functional.max_pool2d(torch.relu(self.Conv_0(x)), 2, 2)
-            x = nn.functional.max_pool2d(torch.relu(self.Conv_1(x)), 2, 2)
+            for conv in (self.Conv_0, self.Conv_1):
+                x = nn.functional.max_pool2d(torch.relu(conv3x3(x, conv.weight, conv.bias)), 2, 2)
             x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)     # flattened as HWC
             x = self.Dense_0(x)
         else:

@@ -31,11 +31,14 @@ replayed and 0 for any other (an eager call, or the call that captured),
 and whose ``captures`` counter is 1 on the call that captured.  The capture
 runs on the inputs' card, on a stream of that card, and in
 ``thread_local`` mode, so that what other threads of the process do
-meanwhile (NCCL's watchdog, say) does not break it.
+meanwhile (NCCL's watchdog, say) does not break it; Python's cyclic
+garbage collector waits until it ends, since a dead env's graph that it
+freed inside would break it (destroying a graph is not allowed there).
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -127,8 +130,14 @@ class PhysicsStep:
             # a capture stream of the inputs' card: torch.cuda.graph's own
             # is made once a process, on the card current at its first use
             stream = torch.cuda.Stream(flat[0].device)
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                out = self.eager(terrain, tile_table, *static_inputs)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    out = self.eager(terrain, tile_table, *static_inputs)
+            finally:
+                if collecting:
+                    gc.enable()
             torch._C._cuda_clearCublasWorkspaces()
         # an output that is a static input passed through (a carry entry the
         # torque function keeps) is given back as the caller's own input

@@ -412,6 +412,110 @@ def test_cnn_policy_on_card_matches_cpu(cuda_device, use_cnn, use_gru):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5, msg=name)
 
 
+# kernel W1 at the conv + GRU cell's update (a minibatch of 24,576
+# histories of 15 frames), at the full (2, 21, 11) scan's maps, and at
+# widths its unrolled walks (11, 5) leave to the general loop
+WGRAD_FRAMES = 24_576 * 15
+WGRAD_SHAPES = [(2, 16, 10, 11), (16, 32, 5, 5), (2, 16, 21, 11), (16, 32, 10, 5),
+                (2, 16, 12, 7), (16, 32, 6, 3)]
+
+
+def wgrad_inputs(dev, cin, cout, h, w, frames, seed=0):
+    """W1's inputs as the encoder's backward hands them: 2 input channels
+    as a slice of observation rows (41 scalars first), 16 as a
+    channels_last map; dy channels_last."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cin == 2:
+        rows = torch.randn(frames, 41 + cin * h * w, generator=g, device=dev)
+        x = rows[:, 41:].reshape(frames, h, w, cin).permute(0, 3, 1, 2)
+    else:
+        x = torch.randn(frames, h, w, cin, generator=g, device=dev).permute(0, 3, 1, 2)
+    return x, torch.randn(frames, h, w, cout, generator=g, device=dev).permute(0, 3, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,h,w", WGRAD_SHAPES)
+def test_conv_wgrad_kernel_matches_float64_on_card(cuda_device, cin, cout, h, w):
+    """Kernel W1's dW and db against its plain version in float64 (summed
+    over chunks of frames) at the cell's 368,640 frames: within 1e-5 of the
+    largest |dW| (|db|), the float32 sums' rounding over a 9.2 M - 85 M
+    term reduction."""
+    from legged_tracking_torch.learn import conv3x3 as c3
+
+    x, dy = wgrad_inputs(cuda_device, cin, cout, h, w, WGRAD_FRAMES, seed=h)
+    dw, db = c3.conv3x3_wgrad(x, dy)
+    want_dw = want_db = 0
+    for i in range(0, WGRAD_FRAMES, 16_384):
+        a, b = c3.conv3x3_wgrad_reference(x[i:i + 16_384].double(), dy[i:i + 16_384].double())
+        want_dw, want_db = want_dw + a, want_db + b
+    assert dw.shape == (cout, cin, 3, 3) and db.shape == (cout,)
+    assert float((dw.double() - want_dw).abs().max()) <= 1e-5 * float(want_dw.abs().max())
+    assert float((db.double() - want_db).abs().max()) <= 1e-5 * float(want_db.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,h,w", WGRAD_SHAPES[:2])
+def test_conv_wgrad_kernel_is_bitwise_repeatable(cuda_device, cin, cout, h, w):
+    """Two launches of W1 on the same inputs are bitwise equal: its blocks'
+    partial sums are added in a fixed order, with no atomics."""
+    from legged_tracking_torch.learn import conv3x3 as c3
+
+    x, dy = wgrad_inputs(cuda_device, cin, cout, h, w, WGRAD_FRAMES)
+    first = c3.conv3x3_wgrad(x, dy)
+    second = c3.conv3x3_wgrad(x, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_conv_wgrad_refuses_other_layouts(cuda_device):
+    """W1 launches or raises: NCHW maps, a float64 map and a dy that is not
+    channels_last are refused, with no copy and no fallback; so are a
+    channel pair it has no tile for and a map whose rows pass a block's
+    threads, which its host code finds no launch for."""
+    from legged_tracking_torch.learn import conv3x3 as c3
+
+    x, dy = wgrad_inputs(cuda_device, 16, 32, 5, 5, 64)
+    for bad in ((x.contiguous(), dy), (x, dy.contiguous()), (x.double(), dy.double()),
+                (x, dy.double()), wgrad_inputs(cuda_device, 4, 16, 5, 5, 64),
+                wgrad_inputs(cuda_device, 16, 32, 11, 5, 64)):
+        with pytest.raises(ValueError, match="conv3x3_wgrad"):
+            c3.conv3x3_wgrad(*bad)
+
+
+@pytest.mark.cuda
+def test_cnn_policy_backward_on_card_matches_cpu(cuda_device):
+    """One loss backward of ActorCriticCNN with the conv encoder and the
+    GRU on the card (W1 for the convs' weight gradients) against the same
+    weights on the CPU (its plain version): every parameter's gradient
+    within 1e-4 of its largest element, and W1 launched twice (Conv_0,
+    Conv_1) for each of the three encoder passes the loss reads."""
+    from legged_tracking_torch.learn import conv3x3 as c3
+    from legged_tracking_torch.learn.actor_critic_cnn import ACCnnArgs, ActorCriticCNN
+
+    num_obs, num_priv = 261, 6
+    torch.manual_seed(0)
+    cpu = ActorCriticCNN(num_obs, num_priv, 3 * num_obs, 12, args=ACCnnArgs(
+        use_cnn=True, use_gru=True, height_map_shape=(2, 10, 11), max_noise_std=1.0))
+    card = ActorCriticCNN(num_obs, num_priv, 3 * num_obs, 12, args=cpu.args).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    o, p, h = (torch.randn(64, n, generator=g) for n in (num_obs, num_priv, 3 * num_obs))
+
+    def grads(ac, o, p, h):
+        mean, std = ac.action_dist(o, p, h)
+        loss = (mean.square().mean() + ac.evaluate(o, p, h).square().mean()
+                + ac.adapt(h).square().mean() + std.sum())
+        return torch.autograd.grad(loss, list(ac.parameters()))
+
+    want = grads(cpu, o, p, h)
+    before = c3.conv3x3_wgrad.launches
+    got = grads(card, *(x.to(cuda_device) for x in (o, p, h)))
+    torch.cuda.synchronize()
+    assert c3.conv3x3_wgrad.launches - before == 6
+    for (name, _), a, b in zip(cpu.named_parameters(), got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+
+
 @pytest.mark.cuda
 def test_goal_train_iteration_on_card_is_finite(cuda_device):
     """A whole train_iteration of 64 envs of the goal recipe on the card,
@@ -839,6 +943,45 @@ def test_physics_graph_replay_equals_eager(cuda_device, task, control_type):
         want = step.eager(terr, env.tile_table, *ins)
         assert step.captures == captures
         assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+
+
+@pytest.mark.cuda
+def test_physics_capture_holds_off_the_garbage_collector(cuda_device):
+    """A captured graph that dies in a reference cycle while the physics
+    step captures (as a finished env's can) is not collected inside the
+    capture, where destroying it would break the capture: with the
+    collector set to run at every allocation, the capture finishes and its
+    replay equals the eager block bitwise."""
+    import gc
+
+    from torch.utils._pytree import tree_leaves
+
+    x = torch.zeros(4, device=cuda_device)
+    dead = [torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(dead[0]):
+        x.add_(1.0)
+    env = physics_env("tunnel", "actuator_net", 16, cuda_device)
+    step = env.physics_step
+    inputs = env._physics_inputs(env.reset_fn(True), torch.zeros(16, 12, device=cuda_device))
+    want = tree_leaves(step.eager(env.terrain, env.tile_table, *inputs))
+    eager = step.eager
+
+    def eager_dropping_a_graph(*args):
+        if dead and torch.cuda.is_current_stream_capturing():
+            cycle = [dead.pop()]
+            cycle.append(cycle)           # the graph now dies with the cycle only
+            del cycle
+        return eager(*args)
+
+    step.eager = eager_dropping_a_graph
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        got = tree_leaves(step(env.terrain, env.tile_table, *inputs))
+    finally:
+        gc.set_threshold(*threshold)
+    assert not dead and step.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_support  # noqa: F401
 
 import chip_smoke
 from legged_tracking_torch import train_actuator_net as tam

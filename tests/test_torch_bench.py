@@ -17,7 +17,7 @@ import os
 import numpy as np
 import pytest
 import torch
-from test_torch_goal import cfg_tree
+from torch_support import cfg_tree
 
 import legged_tracking_tpu.envs
 import legged_tracking_tpu.learn

@@ -25,8 +25,8 @@ import sys
 
 import jax
 import numpy as np
-import pytest
 import torch
+from torch_support import VelocityDraws, install_velocity_draws
 
 import chip_smoke
 from legged_tracking_torch.physics.go1_model_data import FOOT_REPORT_SLOTS
@@ -34,15 +34,6 @@ from legged_tracking_torch.physics.model import make_go1_model
 
 TM = make_go1_model("cpu")
 MG = chip_smoke.GO1_MASS * chip_smoke.GRAVITY     # Go1 total weight (URDF masses, N)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Steps of a few envs are op by op: one thread runs them fastest."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_stance_feet_only_contact():
@@ -77,14 +68,14 @@ def test_pd_step_response():
 
 def jax_draws(n):
     """The JAX velocity env's draws from its reset key (the seed 11 of the
-    script's configuration), routed into a port env by ``install``."""
-    from test_torch_velocity import VelocityDraws
+    script's configuration), routed into a port env by
+    ``install_velocity_draws``."""
     return VelocityDraws(jax.random.key(11), n)
 
 
 def port_on_jax_draws(n):
-    from test_torch_velocity import install
-    return chip_smoke.ji22_run(install(chip_smoke.ji22_env(n, "cpu"), jax_draws(n)))
+    env = install_velocity_draws(chip_smoke.ji22_env(n, "cpu"), jax_draws(n))
+    return chip_smoke.ji22_run(env)
 
 
 def test_ji22_gate_at_calm_stance():
@@ -150,5 +141,4 @@ def shares(n):
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    torch.set_num_threads(1)
     shares(int(sys.argv[1]) if len(sys.argv) > 1 else 256)

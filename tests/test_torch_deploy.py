@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_support  # noqa: F401
 
 import chip_smoke
 from legged_tracking_torch import deploy_policy, deploy_traj_policy

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_support import (N, JaxDraws, assert_state_close, bench_cfg, install_jax_draws,
+                           to_numpy)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.actuation import actuators as t_act
@@ -24,102 +26,8 @@ from legged_tracking_tpu.actuation import actuators
 from legged_tracking_tpu.config import Cfg, config_go1
 from legged_tracking_tpu.envs import LeggedEnv as JEnv
 
-N = 4
 GOLDEN = os.path.join(os.path.dirname(__file__), "..", "assets", "goldens",
                       "tunnel_rollout_v1.npz")
-
-
-class JaxDraws:
-    """Stands in for the port's ``LeggedEnv.draw``: the value the JAX env
-    draws for the same tag, from the JAX env's keys.  A tag element
-    ``("split", n, i)`` takes the i-th of ``jax.random.split(key, n)``."""
-
-    def __init__(self, reset_key, num_envs):
-        gkey, ekey, lkey = jax.random.split(reset_key, 3)
-        self.reset_keys = jax.random.split(ekey, num_envs)
-        self.lkey = lkey
-        self.rng = self._fold(self.reset_keys, 999)
-        self.global_rng = gkey
-        self._split()
-
-    @staticmethod
-    def _fold(keys, tag):
-        return jax.vmap(jax.random.fold_in, in_axes=(0, None))(keys, tag)
-
-    def _split(self):
-        keys2 = jax.vmap(lambda k: jax.random.split(k, 2))(self.rng)
-        self.rng_next, self.kstep = keys2[:, 0], keys2[:, 1]
-        self.g_next, self.gk = jax.random.split(self.global_rng, 2)
-
-    def advance(self):
-        """Move on to the next step's keys (LeggedEnv.step_fn's key split)."""
-        self.rng, self.global_rng = self.rng_next, self.g_next
-        self._split()
-
-    def __call__(self, tag, shape, lo, hi, integer=False):
-        ns, path = tag[0], tag[1:]
-        if ns == "global":
-            v = jax.random.uniform(self.gk, shape, minval=lo, maxval=hi)
-        elif path == ("ep_len",):
-            v = jax.random.randint(self.lkey, shape, lo, hi)
-        else:
-            keys = self.reset_keys if ns == "reset" else self.kstep
-            for t in path:
-                if isinstance(t, tuple):          # ("split", n, i): split(key, n)[i]
-                    _, n, i = t
-                    keys = jax.vmap(lambda k: jax.random.split(k, n)[i])(keys)
-                else:
-                    keys = self._fold(keys, t)
-            v = jax.vmap(lambda k: jax.random.uniform(k, shape[1:], minval=lo, maxval=hi))(keys)
-        return torch.as_tensor(np.array(v))
-
-
-def install(env, draws):
-    """Route env's draws to ``draws`` and advance its keys after each step."""
-    env.draw = draws
-    step_fn = env.step_fn
-
-    def stepped(state, actions):
-        out = step_fn(state, actions)
-        draws.advance()
-        return out
-
-    env.step_fn = stepped
-    return env
-
-
-def bench_cfg(cfg_cls, go1, num_envs=N, episode_s=0.06):
-    """bench.py:18's configuration cut to 2x2 tiles and a few envs; episodes
-    of 3 steps so that the auto-reset runs."""
-    cfg = go1(cfg_cls())
-    cfg.env.num_envs = num_envs
-    cfg.terrain.mesh_type = "trimesh"
-    cfg.terrain.terrain_type = "single_path"
-    cfg.terrain.num_rows = 2
-    cfg.terrain.num_cols = 2
-    cfg.terrain.terrain_length = 4.0
-    cfg.terrain.terrain_width = 2.0
-    cfg.terrain.terrain_ratio_x = 0.9
-    cfg.terrain.terrain_ratio_y = 0.5
-    cfg.terrain.ceiling_height = 0.8
-    cfg.terrain.start_loc = 0.32
-    cfg.env.episode_length_s = episode_s
-    cfg.env.command_type = "xy"
-    cfg.terrain.measure_front_half = True
-    cfg.terrain.measured_points_x = np.linspace(-1, 1, 21)
-    cfg.terrain.measured_points_y = np.linspace(-0.5, 0.5, 11)
-    cfg.control.control_type = "actuator_net"
-    cfg.asset.penalize_contacts_on = ["thigh", "calf", "base"]
-    cfg.asset.terminate_after_contacts_on = []
-    cfg.rewards.terminal_body_height = 0.0
-    cfg.reward_scales.set("exploration_lin", 1.0)
-    cfg.reward_scales.set("exploration_yaw", 0.4)
-    cfg.commands.traj_function = "fixed_target"
-    cfg.commands.traj_length = 1
-    cfg.commands.switch_dist = 0.3
-    cfg.commands.base_x = 2.6
-    cfg.sim.lane_engine = False
-    return cfg
 
 
 @pytest.fixture(scope="module")
@@ -131,33 +39,6 @@ def envs():
     key = jax.random.key(5)
     jstate = jenv._reset_jit(key, True)
     return jenv, tenv, key, jstate
-
-
-def to_numpy(jstate):
-    """A JAX EnvState as numpy leaves (phys and act as dicts), PRNG keys and
-    unused fields left out."""
-    out = {}
-    for k, v in jstate._asdict().items():
-        if k in ("rng", "global_rng") or v is None:
-            continue
-        out[k] = ({f: np.asarray(x) for f, x in v._asdict().items()}
-                  if k in ("phys", "act") else np.asarray(v))
-    return out
-
-
-def assert_state_close(tstate, jstate, atol, exact=()):
-    t = convert.env_state_to_numpy(tstate)
-    j = to_numpy(jstate)
-    for name, a in t.items():
-        pairs = (a.items() if isinstance(a, dict) else [(None, a)])
-        for sub, x in pairs:
-            y = j[name][sub] if sub else j[name]
-            y = np.asarray(y, dtype=np.float32) if np.asarray(y).dtype.name == "bfloat16" else y
-            label = f"{name}.{sub}" if sub else name
-            if x.dtype.kind in "biu" or name in exact:
-                np.testing.assert_array_equal(x, np.asarray(y), err_msg=label)
-            else:
-                np.testing.assert_allclose(x, np.asarray(y), rtol=0, atol=atol, err_msg=label)
 
 
 def test_actuators_match():
@@ -258,7 +139,7 @@ def test_step_fn_matches_five_steps(envs):
     inside tests/test_lane_engine.py:443-446's limits for a reassociated
     physics (1e-3, 5e-2, 1e-2, 5e-2)."""
     jenv, tenv, key, jstate = envs
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         js = jstate
@@ -310,7 +191,7 @@ def test_golden_rollout_through_port():
     tenv = TEnv(golden_cfg(TCfg, t_config_go1), seed=7, device="cpu")
     key = jax.random.key(7)
     state = convert.env_state_from_numpy(to_numpy(jenv.reset_fn(key, False)), device="cpu")
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     a = torch.tensor([0.1, -0.2, 0.3, -0.1, 0.2, -0.3] * 2)[None].repeat(N, 1)
     traj = []
     for t in range(20):

@@ -20,9 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws, assert_state_close, bench_cfg, install, to_numpy
-from test_torch_goal import cfg_tree, script
-from test_torch_imports import FORBIDDEN
+from torch_support import (FORBIDDEN, JaxDraws, assert_state_close, bench_cfg, cfg_tree,
+                           install_jax_draws, script, to_numpy)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch import eval as t_eval
@@ -54,15 +53,6 @@ from legged_tracking_tpu.learn.runner import RunnerArgs as JRunnerArgs
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, STEPS = 4, 5
 J_EVAL = script("eval")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side runs single-threaded beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def write_jax_run(logdir, env):
@@ -115,7 +105,7 @@ def rollouts(world):
     the port's from that reset state with the JAX env's draws."""
     w = world
     jm, jframes = J_EVAL.rollout_metrics(w.jenv, w.jalg, w.jparams, w.jpolicy, STEPS)
-    install(w.tenv, JaxDraws(w.key, N))
+    install_jax_draws(w.tenv, JaxDraws(w.key, N))
     try:
         tm, tframes = t_eval.rollout_metrics(
             w.tenv, w.talg, w.tpolicy, STEPS,
@@ -247,7 +237,7 @@ def test_reset_and_step_under_rand_large(world):
     base_pos 0, obs 1.2e-7, rew 9.3e-10)."""
     w = world
     draws = JaxDraws(w.key, N)
-    install(w.tenv, draws)
+    install_jax_draws(w.tenv, draws)
     try:
         tstate = w.tenv.reset_fn(False)
         assert_state_close(tstate, w.jstate0, atol=0.0)
@@ -349,7 +339,7 @@ print("ok")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, env={**env, "OMP_NUM_THREADS": "1"}, cwd=ROOT)
+                         timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 

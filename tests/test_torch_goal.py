@@ -4,16 +4,12 @@ entries' configurations against ``scripts/train.py`` and
 ``scripts/train_hierarchy.py``.  The recipe's env is stepped against the JAX
 one, with the planner on, in tests/test_torch_planner.py."""
 
-import dataclasses
-import importlib.util
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws
+from torch_support import J_TRAIN, JaxDraws, cfg_tree, goal_cfgs, script
 
 from legged_tracking_torch import convert
 from legged_tracking_torch import train as t_train
@@ -24,39 +20,7 @@ from legged_tracking_tpu.envs import trajectories as j_traj
 from legged_tracking_tpu.rewards import containers as j_rew
 from legged_tracking_tpu.terrain.tunnel import build_terrain as j_build_terrain
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-N = 4
-
-
-def script(name):
-    """``scripts/<name>.py`` of the JAX package, as a module."""
-    spec = importlib.util.spec_from_file_location(f"scripts_{name}",
-                                                  os.path.join(ROOT, "scripts", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-J_TRAIN, J_HIERARCHY = script("train"), script("train_hierarchy")
-GOAL_FLAGS = ["--strategy", "goal", "--terrain", "random_pyramid", "--terrain_rows", "2",
-              "--terrain_cols", "2"]
-
-
-def goal_cfgs(num_envs=N, flags=()):
-    """The goal recipe's configuration from each package's train entry."""
-    argv = GOAL_FLAGS + ["--num_envs", str(num_envs), *flags]
-    return J_TRAIN.build_cfg(J_TRAIN.parse_args(argv)), t_train.build_cfg(t_train.parse_args(argv))
-
-
-def cfg_tree(obj):
-    """A configuration as nested dicts and lists of plain values."""
-    if dataclasses.is_dataclass(obj):
-        return {k: cfg_tree(v) for k, v in vars(obj).items()}
-    if isinstance(obj, np.ndarray):
-        return obj.tolist()
-    if isinstance(obj, (list, tuple)):
-        return [cfg_tree(x) for x in obj]
-    return obj
+J_HIERARCHY = script("train_hierarchy")
 
 
 # ------------------------------------------------------------ trajectories

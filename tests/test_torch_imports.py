@@ -7,8 +7,9 @@ import os
 import subprocess
 import sys
 
+from torch_support import FORBIDDEN
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "legged_tracking_tpu")
 
 
 def port_sources():

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_support  # noqa: F401
 
 import chip_smoke
 from legged_tracking_torch import train as t_train

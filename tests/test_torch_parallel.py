@@ -11,8 +11,9 @@ The two ranks run once, in a module fixture, and so do the four; each
 writes what it computed and the tests compare.  The bootstrap variables and
 the ranks' cards are read through monkeypatched ``init_distributed`` and
 ``torch.cuda``.  ``cheap_perm`` is held bitwise against JAX's
-``_cheap_perm`` on JAX's own draws, fed to the port.  JAX is imported in
-that test only: the spawned ranks import this module, and need none of it.
+``_cheap_perm`` on JAX's own draws, fed to the port.  The spawned ranks
+import this module, and with it ``torch_support``: they run torch on one
+thread, as the one-rank side does.
 """
 
 import json
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+import torch_support  # noqa: F401
 
 from legged_tracking_torch.config import Cfg, config_go1
 from legged_tracking_torch.envs import LeggedEnv
@@ -34,16 +36,6 @@ from legged_tracking_torch.parallel import Shard, init_distributed, launch, rank
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The one-rank side runs single-threaded, as the ranks do, beside the
-    other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_env(shard=None, mixed_signs=False):
@@ -145,7 +137,6 @@ def small_runner(env, logdir=None, distributed=False):
 
 def rank_work(outdir):
     """One rank's share of every case, written to ``rank<r>.pkl``."""
-    torch.set_num_threads(1)
     rank, world = dist.get_rank(), dist.get_world_size()
     shard = Shard(rank, world, N)
     steps, _ = rollout(make_env(shard))
@@ -360,8 +351,7 @@ def test_train_entry_on_two_cpu_ranks(tmp_path):
            "--num_devices", "2", "--old_ppo", "--strategy", "e2e", "--num_envs", "8",
            "--iterations", "2", "--num_steps_per_env", "4", "--terrain_rows", "2",
            "--terrain_cols", "2", "--logdir", str(logdir)]
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     recs = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
     assert [r["it"] for r in recs] == [0, 1]
@@ -399,7 +389,6 @@ def test_train_entry_policy_is_drawn_from_the_seed():
 def four_rank_work(outdir):
     """One of four ranks' rollout and two train iterations, 2 envs a rank,
     written to ``four<r>.pkl``."""
-    torch.set_num_threads(1)
     rank, world = dist.get_rank(), dist.get_world_size()
     shard = Shard(rank, world, N)
     steps, _ = rollout(make_env(shard))

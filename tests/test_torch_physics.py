@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_support  # noqa: F401
 
 from legged_tracking_torch.actuation import actuators as t_act
 from legged_tracking_torch.config import Cfg as TCfg

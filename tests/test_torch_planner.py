@@ -10,8 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws, bench_cfg, install, to_numpy
-from test_torch_goal import J_TRAIN
+from torch_support import J_TRAIN, JaxDraws, bench_cfg, install_jax_draws, to_numpy
 
 from legged_tracking_torch import convert
 from legged_tracking_torch import train as t_train
@@ -154,7 +153,7 @@ def test_planner_env_steps_match_jax(envs):
     key = jax.random.key(5)
     jstate = jenv._reset_jit(key, True)
     assert jstate.measured_heights is not None
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     try:
         tstate = tenv.reset_fn(True)
         np.testing.assert_array_equal(tstate.measured_heights.numpy(),

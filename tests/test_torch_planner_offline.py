@@ -11,6 +11,7 @@ the menu at its default budgets."""
 
 import numpy as np
 import pytest
+import torch_support  # noqa: F401
 
 from legged_tracking_torch.utils import planner as tp
 from legged_tracking_tpu.utils import planner as jp

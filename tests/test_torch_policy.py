@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import N, JaxDraws, bench_cfg, install, to_numpy
+from torch_support import N, JaxDraws, bench_cfg, carry_over, install_jax_draws, to_numpy
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.config import Cfg as TCfg
@@ -23,14 +23,6 @@ from legged_tracking_tpu.config import Cfg, config_go1
 from legged_tracking_tpu.envs import LeggedEnv as JEnv
 from legged_tracking_tpu.learn import actor_critic as j_ac
 from legged_tracking_tpu.learn import ppo as j_ppo
-
-
-def carry_over(jmodule, params, **dims):
-    """The torch twin of a flax ActorCriticCSE, with its parameters."""
-    ac = t_ac.ActorCriticCSE(**dims, args=t_ac.ACArgs(max_noise_std=jmodule.args.max_noise_std))
-    np_params = jax.tree.map(np.asarray, params)
-    ac.load_state_dict(convert.flax_params_to_state_dict(np_params))
-    return ac
 
 
 @pytest.mark.parametrize("max_noise_std", [None, 0.5])
@@ -98,7 +90,7 @@ def test_rollout_matches_with_injected_normals():
     noise = np.stack([np.asarray(jax.random.normal(k, (N, jenv.num_actions)))
                       for k in jax.random.split(rkey, T)])
 
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         _, _, ttraj, metrics, _ = talg.rollout(tstate, tenv.observe(tstate),

@@ -13,8 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_goal import goal_cfgs
-from test_torch_ppo import METRICS, max_err, params_errors, tree_rel_err
+from torch_support import METRICS, goal_cfgs, max_err, params_errors, tree_rel_err
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.envs import LeggedEnv as TEnv
@@ -33,15 +32,6 @@ from legged_tracking_tpu.learn.runner import RunnerArgs as JRunnerArgs
 HISTORY = 3
 VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
 VARIANT_IDS = ["mlp", "conv", "mlp_gru", "conv_gru"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side runs single-threaded beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

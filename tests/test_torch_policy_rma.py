@@ -13,9 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import to_numpy
-from test_torch_ppo import METRICS, max_err, params_errors, tree_rel_err
-from test_torch_velocity import N, VelocityDraws, install, uninstall, velocity_cfgs
+from torch_support import (METRICS, N, VelocityDraws, install_velocity_draws, max_err,
+                           params_errors, to_numpy, tree_rel_err, uninstall, velocity_cfgs)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv as TEnv
@@ -33,15 +32,6 @@ from legged_tracking_tpu.learn.runner import RunnerArgs as JRunnerArgs
 
 DIMS = dict(num_obs=70, num_privileged_obs=2, num_obs_history=2100, num_actions=12)
 HEADS = ("mean", "std", "value", "adapt", "adaptation_target", "act_student", "act_teacher")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side runs single-threaded beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def policies(max_noise_std=None, seed=1):
@@ -246,7 +236,7 @@ def test_velocity_rma_train_iteration_matches_jax():
                       for k in jax.random.split(k_roll, T)])
     perm = np.asarray(jax.random.permutation(k_update, T * N))
 
-    install(tenv, VelocityDraws(key, N))
+    install_velocity_draws(tenv, VelocityDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         tts2, tstate2, tobs2, tmet = talg.train_iteration(

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws, bench_cfg, install, to_numpy
-from test_torch_policy import carry_over
+from torch_support import (METRICS, JaxDraws, carry_over, install_jax_draws, iteration_cfg,
+                           max_err, params_errors, small_cfg, to_numpy, tree_rel_err)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.config import Cfg as TCfg
@@ -28,41 +28,6 @@ from legged_tracking_tpu.envs import LeggedEnv as JEnv
 from legged_tracking_tpu.learn import actor_critic as j_ac
 from legged_tracking_tpu.learn import ppo as j_ppo
 from legged_tracking_tpu.learn.utils import RunningMeanStd as JRms
-
-METRICS = ("value_loss", "surrogate_loss", "adaptation_loss", "adaptation_test_loss",
-           "kl_mean")
-# observation frames in the history: 3 instead of the bench's 15 keeps the
-# CPU work of the default-width networks small (783 inputs, not 3915)
-HISTORY = 3
-
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side runs single-threaded: the tests run beside other
-    test processes, and idle intra-op threads of every process spinning on
-    the shared cores slow them all."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-def small_cfg(cfg_cls, go1, num_envs=4):
-    cfg = bench_cfg(cfg_cls, go1, num_envs=num_envs)
-    cfg.env.num_observation_history = HISTORY
-    return cfg
-
-
-def max_err(a, b):
-    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)),
-                        initial=0.0))
-
-
-def tree_err(a, b):
-    """Largest abs difference over the leaves of two pytrees of one layout."""
-    la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
-    assert len(la) == len(lb) > 0
-    return max(max_err(x, y) for x, y in zip(la, lb))
 
 
 def test_normal_kl_and_running_mean_std_match():
@@ -252,30 +217,6 @@ def jax_update(world):
     return gae, update, step
 
 
-def tree_rel_err(a, b):
-    """Largest abs difference of each leaf over the leaf's largest value."""
-    la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
-    assert len(la) == len(lb) > 0
-    return max(max_err(x, y) / max(float(np.max(np.abs(y), initial=0.0)), 1e-30)
-               for x, y in zip(la, lb) if np.asarray(y).size)
-
-
-def flat_abs_err(a, b):
-    return np.concatenate([np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).ravel()
-                           for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b))])
-
-
-def params_errors(got, want, start):
-    """Of two updated parameter trees: the largest rms error of a leaf over
-    the rms distance that leaf moved from ``start``, and the share of all
-    elements more than 1e-4 apart."""
-    leaves = list(zip(jax.tree.leaves(got), jax.tree.leaves(want), jax.tree.leaves(start)))
-    rms_rel = max(float(np.sqrt(np.mean(flat_abs_err(x, y) ** 2)
-                                / np.mean(flat_abs_err(x0, y) ** 2))) for x, y, x0 in leaves)
-    return {"leaf_rms_rel": rms_rel,
-            "frac_over_1e-4": float(np.mean(flat_abs_err(got, want) > 1e-4))}
-
-
 @pytest.mark.parametrize("desired_kl,max_grad_norm", [
     (1e-5, 1.0), (1e-5, 1e4), (0.01, 1.0), (0.01, 1e4), (1e3, 1.0)],
     ids=["lr_down-clip", "lr_down-noclip", "lr_mixed-clip", "lr_mixed-noclip", "lr_up-clip"])
@@ -356,16 +297,6 @@ def test_update_matches(world, jax_update, monkeypatch, desired_kl, max_grad_nor
 
 
 # --------------------------------------------------------- train_iteration
-def iteration_cfg(cfg_cls, go1, n_eval):
-    cfg = small_cfg(cfg_cls, go1, num_envs=8)
-    cfg.env.num_eval_envs = n_eval
-    if n_eval:
-        # rehearsal mixing: the frontier_* metrics and the mixed reset draw
-        cfg.curriculum_thresholds.cl_fix_target = True
-        cfg.curriculum_thresholds.cl_dist_mix = 0.5
-    return cfg
-
-
 @pytest.mark.parametrize("n_eval,normalize_obs", [(0, False), (2, True)],
                          ids=["plain", "eval_envs_normalized"])
 def test_train_iteration_matches(n_eval, normalize_obs):
@@ -406,7 +337,7 @@ def test_train_iteration_matches(n_eval, normalize_obs):
     n_train = N - n_eval
     perm = np.asarray(jax.random.permutation(k_update, T * n_train))
 
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         tts2, tstate2, tobs2, tm = talg.train_iteration(

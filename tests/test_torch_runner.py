@@ -13,8 +13,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws, bench_cfg, install, to_numpy
-from test_torch_ppo import params_errors, small_cfg
+from torch_support import (JaxDraws, bench_cfg, install_jax_draws, params_errors, small_cfg,
+                           to_numpy)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch import train as t_train
@@ -32,17 +32,6 @@ from legged_tracking_tpu.learn import ppo as j_ppo
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side runs single-threaded: the tests run beside other
-    test processes, and idle intra-op threads of every process spinning on
-    the shared cores slow them all."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def test_warmup_iteration_matches():
     """A critic-only warmup iteration (4-step rollout, 2 epochs x 2
@@ -71,7 +60,7 @@ def test_warmup_iteration_matches():
                       for k in jax.random.split(k_roll, T)])
     perm = np.asarray(jax.random.permutation(k_update, T * N))
 
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         tts2, _, _, tm, _ = talg.warmup_iteration(
@@ -283,8 +272,7 @@ def test_train_entry_on_cpu(tmp_path):
     cmd = [sys.executable, "-m", "legged_tracking_torch.train", "--device", "cpu",
            "--old_ppo", "--strategy", "e2e", "--num_envs", "8", "--iterations", "2",
            "--terrain_rows", "2", "--terrain_cols", "2", "--logdir", str(logdir)]
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     recs = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
     assert [r["it"] for r in recs] == [0, 1]

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_support  # noqa: F401
 
 from legged_tracking_torch.config import Cfg as TCfg
 from legged_tracking_torch.config import config_go1 as t_config_go1
@@ -66,11 +67,8 @@ def curriculum_cfg(Cfg, config_go1):
 
 @pytest.fixture(scope="module")
 def envs():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield (JEnv(curriculum_cfg(Cfg, config_go1)),
-           TEnv(curriculum_cfg(TCfg, t_config_go1), device="cpu"))
-    torch.set_num_threads(n)
+    return (JEnv(curriculum_cfg(Cfg, config_go1)),
+            TEnv(curriculum_cfg(TCfg, t_config_go1), device="cpu"))
 
 
 def row(n, reach, frontier=None):

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_support  # noqa: F401
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

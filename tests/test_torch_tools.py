@@ -14,8 +14,7 @@ import re
 import jax
 import numpy as np
 import pytest
-from test_torch_env import to_numpy
-from test_torch_velocity import VelocityDraws, install, uninstall
+from torch_support import VelocityDraws, install_velocity_draws, to_numpy, uninstall
 
 from legged_tracking_torch import bench as t_bench
 from legged_tracking_torch import convert
@@ -352,7 +351,7 @@ def test_ji22_stand_ledger_matches_jax_tool():
     tenv = t_ji22.make_env(0.0, num_envs=4, device="cpu")
     state = convert.env_state_from_numpy(
         to_numpy(jenv._reset_jit(jax.random.key(1), False)), device="cpu")
-    install(tenv, VelocityDraws(jax.random.key(1), 4))
+    install_velocity_draws(tenv, VelocityDraws(jax.random.key(1), 4))
     try:
         tper, tneg = t_ji22.ledger(tenv, "stand", steps=5, state=state)
     finally:

@@ -13,6 +13,7 @@ import warnings
 
 import pytest
 import torch
+import torch_support  # noqa: F401
 from torch.utils._pytree import tree_leaves
 
 from legged_tracking_torch import bench, tracing

@@ -12,7 +12,6 @@ the command resample and the auto-reset all run within 4 steps; the JAX env
 runs its env-major physics (``lane_engine=False``), jitted.
 """
 
-import importlib.util
 import os
 import pickle
 import subprocess
@@ -23,8 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws, assert_state_close, to_numpy
-from test_torch_goal import cfg_tree
+from torch_support import (J_TV, N, VelocityDraws, assert_state_close, cfg_tree,
+                           install_velocity_draws, to_numpy, uninstall, velocity_cfgs)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch import train_velocity_tracking as t_tv
@@ -48,102 +47,6 @@ from legged_tracking_tpu.terrain import heightfield as j_hf
 from legged_tracking_tpu.terrain import legged_gym_terrains as j_lgt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-N = 4
-
-
-def _script():
-    spec = importlib.util.spec_from_file_location(
-        "scripts_train_velocity_tracking",
-        os.path.join(ROOT, "scripts", "train_velocity_tracking.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-J_TV = _script()
-SMALL = ["--num_envs", str(N), "--terrain_rows", "2", "--terrain_cols", "2"]
-
-
-def velocity_cfgs(flags=SMALL, resampling_time=0.04, episode_s=0.06):
-    """The script's configuration from each package's entry, with commands
-    resampled every ``resampling_time`` s (2 steps), episodes of
-    ``episode_s`` (3 steps), lower curriculum thresholds, and the JAX env's
-    env-major physics."""
-    out = []
-    for mod in (J_TV, t_tv):
-        cfg = mod.build_cfg(mod.parse_args(flags))
-        cfg.commands.resampling_time = resampling_time
-        cfg.env.episode_length_s = episode_s
-        cfg.sim.lane_engine = False
-        # the curriculum starts from its centre bin alone, and its success
-        # thresholds are an eighth of the defaults, so that some envs clear
-        # them within 2 steps and the weights around them move
-        cfg.commands.lin_vel_x = cfg.commands.ang_vel_yaw = [-0.3, 0.3]
-        for k in ("tracking_lin_vel", "tracking_ang_vel", "tracking_contacts_shaped_force",
-                  "tracking_contacts_shaped_vel"):
-            setattr(cfg.curriculum_thresholds, k, getattr(cfg.curriculum_thresholds, k) / 8)
-        out.append(cfg)
-    return out
-
-
-class VelocityDraws(JaxDraws):
-    """``JaxDraws`` for the velocity env: integer draws (the gait category),
-    draws under the state key (``("rng", ...)``, the reset's resample), and
-    :meth:`bins`, the JAX curriculum's categorical, in place of the env's
-    ``draw_bins``."""
-
-    def _keys(self, ns, path):
-        keys = {"reset": self.reset_keys, "step": self.kstep, "rng": self.rng}[ns]
-        for t in path:
-            if isinstance(t, tuple):
-                _, n, i = t
-                keys = jax.vmap(lambda k: jax.random.split(k, n)[i])(keys)
-            else:
-                keys = self._fold(keys, t)
-        return keys
-
-    def __call__(self, tag, shape, lo, hi, integer=False):
-        ns, path = tag[0], tag[1:]
-        if ns == "rng" or (integer and path != ("ep_len",)):
-            keys = self._keys(ns, path)
-            if integer:
-                v = jax.vmap(lambda k: jax.random.randint(k, shape[1:], lo, hi))(keys)
-                return torch.as_tensor(np.array(v, np.int32))
-            v = jax.vmap(lambda k: jax.random.uniform(k, shape[1:], minval=lo, maxval=hi))(keys)
-            return torch.as_tensor(np.array(v))
-        return super().__call__(tag, shape, lo, hi, integer)
-
-    def bins(self, tag, weights, categories):
-        keys = self._keys(tag[0], tag[1:])
-        return torch.as_tensor(np.asarray(
-            _categorical(keys, jnp.asarray(weights.numpy()), jnp.asarray(categories.numpy())),
-            np.int32))
-
-
-@jax.jit
-def _categorical(keys, weights, categories):
-    """DeviceCurriculum.sample's bin draw (tasks/curriculum.py:214-219)."""
-    logits = jnp.log(jnp.maximum(weights[categories], 1e-12))
-    return jax.vmap(jax.random.categorical)(keys, logits)
-
-
-def install(env, draws):
-    """Route env's draws to ``draws`` and advance its keys after each step."""
-    env.draw, env.draw_bins = draws, draws.bins
-    step_fn = env.step_fn
-
-    def stepped(state, actions):
-        out = step_fn(state, actions)
-        draws.advance()
-        return out
-
-    env.step_fn = stepped
-    return env
-
-
-def uninstall(env):
-    for name in ("draw", "draw_bins", "step_fn"):
-        env.__dict__.pop(name, None)
 
 
 @pytest.fixture(scope="module")
@@ -464,7 +367,7 @@ def test_velocity_step_fn_matches_four_steps(envs):
     velocities 1.2e-4, obs 6.2e-6, privileged obs 0, desired contact states
     1.2e-7, clocks 6.0e-8, the curriculum's tracking sums 5.8e-7."""
     jenv, tenv, key, jstate = envs
-    install(tenv, VelocityDraws(key, N))
+    install_velocity_draws(tenv, VelocityDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         js = jstate
@@ -567,8 +470,7 @@ def test_train_velocity_entry_on_cpu(tmp_path):
     cmd = [sys.executable, "-m", "legged_tracking_torch.train_velocity_tracking",
            "--device", "cpu", "--num_envs", "8", "--terrain", "plane", "--iterations", "2",
            "--num_steps_per_env", "8", "--logdir", str(logdir)]
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     recs = [json.loads(line) for line in open(logdir / "metrics.jsonl")]
     assert [r["it"] for r in recs] == [0, 1]

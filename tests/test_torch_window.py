@@ -20,9 +20,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_env import JaxDraws, bench_cfg, install, to_numpy
-from test_torch_ppo import HISTORY, METRICS, iteration_cfg, max_err, params_errors, tree_rel_err
 from torch.overrides import TorchFunctionMode
+from torch_support import (HISTORY, METRICS, JaxDraws, bench_cfg, install_jax_draws,
+                           iteration_cfg, max_err, params_errors, to_numpy, tree_rel_err)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch import train as t_train
@@ -55,15 +55,6 @@ def short_steps(cfg):
     cfg.control.decimation = 1
     cfg.env.episode_length_s = 3 * cfg.sim.dt
     return cfg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port runs single-threaded beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------ window_histories
@@ -326,7 +317,7 @@ def test_windowed_train_iteration_matches_jax():
                       for k in jax.random.split(k_roll, T)])
     perm = np.asarray(jax.random.permutation(k_update, T * N))
 
-    install(tenv, JaxDraws(key, N))
+    install_jax_draws(tenv, JaxDraws(key, N))
     try:
         tstate = convert.env_state_from_numpy(to_numpy(jstate), device="cpu")
         tts2, tstate2, tobs2, tm = talg.train_iteration(

@@ -1556,11 +1556,12 @@ def phase_cnn_update_reference(dev, card_line: str):
     update_reference(dev, card_line, "cnn_update_reference",
                      lambda d: LeggedEnv(train.build_cfg(args), seed=3, device=d),
                      lambda env: train.make_policy(args, env.cfg, env), tol)
-    # W1 for both convs in each encoder backward: action_dist and evaluate
-    # under the loss, then adapt under each adaptation substep, every
-    # minibatch of every epoch (the CPU's side runs the plain version)
+    # W1 for both convs in each encoder backward: the one history pass that
+    # action_dist_and_value shares between the heads under the loss, then
+    # adapt under each adaptation substep, every minibatch of every epoch
+    # (the CPU's side runs the plain version)
     a = PPOArgs()
-    want = 2 * (2 + a.num_adaptation_module_substeps) * a.num_learning_epochs * a.num_mini_batches
+    want = 2 * (1 + a.num_adaptation_module_substeps) * a.num_learning_epochs * a.num_mini_batches
     launches = conv3x3.conv3x3_wgrad.launches - before
     if launches != want:
         raise AssertionError(f"cnn_update_reference: conv3x3_wgrad launched {launches} times "

@@ -94,6 +94,11 @@ class ActorCriticCSE(nn.Module):
         mean = self.actor_body(torch.cat([obs_history, latent], dim=-1))
         return mean, clamp_std(self.std, self.args)
 
+    def action_dist_and_value(self, obs, privileged_obs, obs_history):
+        """``action_dist`` then ``evaluate``: the heads share no pass."""
+        return (*self.action_dist(obs, privileged_obs, obs_history),
+                self.evaluate(obs, privileged_obs, obs_history))
+
     def act_student(self, obs, obs_history):
         """Deterministic deployment policy (act_student, :144-148)."""
         latent = self.adaptation_module(obs_history)

@@ -25,6 +25,9 @@ records two spans of the port's tracer (:mod:`..tracing`):
 ``policy.encoder`` around the height encoder (counter ``frames``: the B x H
 frames it embeds) and, with the GRU, ``policy.gru`` around the recurrence
 (counters ``steps``, H, and ``rows``, B).
+:meth:`ActorCriticCNN.action_dist_and_value`, the actor and critic heads
+over one such call, records ``policy.heads`` around it (counter ``heads``,
+2).
 """
 
 from __future__ import annotations
@@ -191,24 +194,34 @@ class ActorCriticCNN(nn.Module):
     def adaptation_target(self, privileged_obs):
         return privileged_obs
 
+    def _mean(self, pin):
+        """The actor's mean on the student's latent."""
+        return self.actor_body(torch.cat([pin, self.adaptation_module(pin)], dim=-1))
+
+    def _value(self, pin, privileged_obs):
+        if self.args.critic_detach_encoder:
+            pin = pin.detach()
+        return self.critic_body(torch.cat([pin, privileged_obs], dim=-1))[..., 0]
+
     def action_dist(self, obs, privileged_obs, obs_history):
-        pin = self.process_obs_history(obs_history)
-        latent = self.adaptation_module(pin)
-        mean = self.actor_body(torch.cat([pin, latent], dim=-1))
-        return mean, clamp_std(self.std, self.args)
+        return self._mean(self.process_obs_history(obs_history)), clamp_std(self.std, self.args)
+
+    def action_dist_and_value(self, obs, privileged_obs, obs_history):
+        """``action_dist`` and ``evaluate`` over one history pass: the two
+        heads read the same encoder and GRU output, and their gradients meet
+        there."""
+        with tracing.span("policy.heads") as span:
+            span.add("heads", 2)
+            pin = self.process_obs_history(obs_history)
+            return (self._mean(pin), clamp_std(self.std, self.args),
+                    self._value(pin, privileged_obs))
 
     def act_student(self, obs, obs_history):
-        pin = self.process_obs_history(obs_history)
-        latent = self.adaptation_module(pin)
-        return self.actor_body(torch.cat([pin, latent], dim=-1))
+        return self._mean(self.process_obs_history(obs_history))
 
     def act_teacher(self, obs, privileged_obs, obs_history):
         pin = self.process_obs_history(obs_history)
         return self.actor_body(torch.cat([pin, privileged_obs], dim=-1))
 
     def evaluate(self, obs, privileged_obs, obs_history):
-        pin = self.process_obs_history(obs_history)
-        if self.args.critic_detach_encoder:
-            pin = pin.detach()
-        v = self.critic_body(torch.cat([pin, privileged_obs], dim=-1))
-        return v[..., 0]
+        return self._value(self.process_obs_history(obs_history), privileged_obs)

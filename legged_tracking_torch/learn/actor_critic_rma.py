@@ -61,6 +61,11 @@ class ActorCriticRMA(nn.Module):
         mean = self.actor_body(torch.cat([obs, latent], dim=-1))
         return mean, clamp_std(self.std, self.args)
 
+    def action_dist_and_value(self, obs, privileged_obs, obs_history):
+        """``action_dist`` then ``evaluate``: the heads share no pass."""
+        return (*self.action_dist(obs, privileged_obs, obs_history),
+                self.evaluate(obs, privileged_obs, obs_history))
+
     def act_student(self, obs, obs_history):
         latent = self.adaptation_module(obs_history)
         return self.actor_body(torch.cat([obs, latent], dim=-1))

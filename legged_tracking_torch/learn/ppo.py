@@ -189,7 +189,8 @@ class PPO:
                  ac: torch.nn.Module | None = None, seed: int = 0):
         """``ac``: the policy (``ActorCriticCSE``, ``ActorCriticCNN`` or
         ``ActorCriticRMA``: any module with ``action_dist``, ``evaluate``,
-        ``adapt``, ``adaptation_target``, ``act_student`` and
+        ``action_dist_and_value`` (both heads, where they can share a
+        pass), ``adapt``, ``adaptation_target``, ``act_student`` and
         ``act_teacher``); the CSE MLP of ``ac_args`` when None."""
         self.env = env
         self.args = args or PPOArgs()
@@ -287,7 +288,8 @@ class PPO:
                                     obs_rms.update(obs_dict["obs_history"],
                                                    all_reduce_sum if self.dp else None))
                 h = h16.float()
-                mean, std = ac.action_dist(o, p, h)
+                # the value first: evaluate draws nothing
+                mean, std, value = ac.action_dist_and_value(o, p, h)
                 std = std.expand_as(mean)
                 if action_noise is not None:
                     eps = action_noise[t]
@@ -306,7 +308,6 @@ class PPO:
                     is_eval = (self.env.env_ids() >= self.n_train)[:, None]
                     actions = torch.where(is_eval, a_det, actions)
                 log_prob = normal_log_prob(mean, std, actions)
-                value = ac.evaluate(o, p, h)
             env_state, out = self.env.step_fn(env_state, actions)
             # timeout bootstrap (ppo_cse/ppo.py:86-89)
             rew = out.rew + self.args.gamma * value * out.info["time_outs"]
@@ -437,9 +438,8 @@ class PPO:
         h = h.float()
         mean_ = self._mean(mb)
 
-        mean, std = ac.action_dist(o, p, h)
+        mean, std, value = ac.action_dist_and_value(o, p, h)
         log_prob = normal_log_prob(mean, std, actions)
-        value = ac.evaluate(o, p, h)
         # per sample under data parallelism, where the mean is a share
         entropy = normal_entropy(std.expand_as(mean) if self.dp else std)
         ratio = torch.exp(log_prob - old_lp)

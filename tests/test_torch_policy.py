@@ -11,7 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_support import N, JaxDraws, bench_cfg, carry_over, install_jax_draws, to_numpy
+from torch_support import (N, JaxDraws, bench_cfg, carry_over, heads_both_ways,
+                           install_jax_draws, to_numpy)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.config import Cfg as TCfg
@@ -62,6 +63,19 @@ def test_policy_outputs_match_after_carry_over(max_noise_std):
           j_ac.normal_log_prob(mean_j, std_j, jnp.asarray(a)), "log_prob",
           rtol=2e-6, atol=0.0)   # sums of 12 terms of up to O(100): a few float32 ulps
     close(t_ac.normal_entropy(std_t), j_ac.normal_entropy(std_j), "entropy")
+
+
+@pytest.mark.parametrize("max_noise_std", [None, 0.5])
+def test_action_dist_and_value_is_the_two_heads(max_noise_std):
+    """``action_dist_and_value`` of the CSE policy runs ``action_dist`` then
+    ``evaluate``: its outputs and the gradients of a loss over them equal
+    theirs bitwise."""
+    torch.manual_seed(0)
+    ac = t_ac.ActorCriticCSE(20, 7, 60, 12, t_ac.ACArgs(max_noise_std=max_noise_std))
+    o, p, h = torch.randn(16, 20), torch.randn(16, 7), torch.randn(16, 60)
+    (two, two_grads), (one, one_grads) = heads_both_ways(ac, o, p, h)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert all(torch.equal(one_grads[k], two_grads[k]) for k in two_grads)
 
 
 def test_rollout_matches_with_injected_normals():

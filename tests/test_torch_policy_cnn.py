@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_support import METRICS, goal_cfgs, max_err, params_errors, tree_rel_err
+from torch_support import (METRICS, goal_cfgs, heads_both_ways, max_err, params_errors,
+                           tree_rel_err)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.envs import LeggedEnv as TEnv
@@ -99,6 +100,45 @@ def test_forward_matches_jax(world, use_cnn, use_gru):
         assert tuple(g.shape) == tuple(np.shape(w)), name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5, err_msg=name)
     assert float(np.abs(np.asarray(want[0])).max()) > 0.05
+
+
+@pytest.mark.parametrize("use_cnn,use_gru,detach",
+                         [(False, False, False), (True, False, False), (False, True, False),
+                          (True, True, False), (True, True, True)],
+                         ids=[*VARIANT_IDS, "conv_gru_detach"])
+def test_action_dist_and_value_shares_one_history_pass(world, use_cnn, use_gru, detach):
+    """``action_dist_and_value`` runs the encoder and the GRU once for both
+    heads: its mean, std and value equal ``action_dist``'s and
+    ``evaluate``'s bitwise, and the gradients of a loss over them, which
+    now meet at the shared pass before they reach its weights, agree
+    within 1e-6 of each leaf's largest element."""
+    _, tm, _ = policies(world, use_cnn, use_gru, critic_detach_encoder=detach)
+    o, p, h = map(torch.as_tensor, inputs(world, 16, seed=0))
+    (two, two_grads), (one, one_grads) = heads_both_ways(tm, o, p, h)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    for k, want in two_grads.items():
+        err = float((one_grads[k] - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), (k, err)
+    assert float(two_grads["height_map_encoder.Dense_0.weight"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("use_cnn", [False, True], ids=["mlp_gru", "conv_gru"])
+@pytest.mark.parametrize("detach", [False, True], ids=["attached", "detached"])
+def test_value_loss_reaches_the_encoder_unless_detached(world, use_cnn, detach):
+    """With ``critic_detach_encoder`` the value alone gives the height
+    encoder and the GRU a zero gradient through the shared pass; without
+    it, every one of their leaves takes a gradient from the value."""
+    _, tm, _ = policies(world, use_cnn, True, critic_detach_encoder=detach)
+    o, p, h = map(torch.as_tensor, inputs(world, 16, seed=0))
+    names, params = zip(*tm.named_parameters())
+    value = tm.action_dist_and_value(o, p, h)[2]
+    grads = torch.autograd.grad(value.square().mean(), params, allow_unused=True,
+                                materialize_grads=True)
+    shared = {k: g for k, g in zip(names, grads)
+              if k.startswith(("height_map_encoder.", "gru."))}
+    assert len(shared) >= 8
+    assert all(bool((g == 0).all()) != (not detach) for g in shared.values()), {
+        k: float(g.abs().max()) for k, g in shared.items()}
 
 
 @pytest.mark.parametrize("cin,cout,h,w", [(2, 16, 10, 11), (16, 32, 5, 5), (2, 16, 21, 11)])

@@ -13,8 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_support import (METRICS, N, VelocityDraws, install_velocity_draws, max_err,
-                           params_errors, to_numpy, tree_rel_err, uninstall, velocity_cfgs)
+from torch_support import (METRICS, N, VelocityDraws, heads_both_ways, install_velocity_draws,
+                           max_err, params_errors, to_numpy, tree_rel_err, uninstall,
+                           velocity_cfgs)
 
 from legged_tracking_torch import convert
 from legged_tracking_torch.envs.velocity_env import VelocityTrackingEnv as TEnv
@@ -81,6 +82,19 @@ def test_rma_forward_matches_jax(max_noise_std):
         assert tuple(g.shape) == tuple(np.shape(w)), name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5, err_msg=name)
     assert float(np.abs(np.asarray(want[0])).max()) > 0.05
+
+
+@pytest.mark.parametrize("max_noise_std", [None, 0.5])
+def test_rma_action_dist_and_value_is_the_two_heads(max_noise_std):
+    """``action_dist_and_value`` of the RMA policy runs ``action_dist`` then
+    ``evaluate``, each with its own encoder pass: its outputs and the
+    gradients of a loss over them equal theirs bitwise."""
+    _, tm, _ = policies(max_noise_std)
+    o, p, h = map(torch.as_tensor, inputs(16, seed=0))
+    (two, two_grads), (one, one_grads) = heads_both_ways(tm, o, p, h)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert all(torch.equal(one_grads[k], two_grads[k]) for k in two_grads)
+    assert float(two_grads["env_factor_encoder.layers.0.weight"].abs().max()) > 0
 
 
 def test_rma_minibatch_update_matches_jax():

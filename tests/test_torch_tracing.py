@@ -222,3 +222,65 @@ def test_cnn_policy_spans_its_encoder_and_gru(monkeypatch):
         before = tracing.record()
         ac.process_obs_history(history)
     assert reads == [] and tracing.record() is before and len(before) == 2
+
+
+def ancestors(spans, s):
+    """The names of the spans that ``s`` opened inside."""
+    names = set()
+    while s.parent >= 0:
+        s = spans[s.parent]
+        names.add(s.name)
+    return names
+
+
+@pytest.mark.parametrize("policy", ["cse", "conv_gru"])
+def test_heads_share_one_history_pass(short_train, policy):
+    """A train iteration under the profiler with the bench's CSE policy,
+    whose heads share no pass, and with a tiny ``ActorCriticCNN`` (conv
+    encoder and GRU) on the same env: the CSE policy records no
+    ``policy.heads`` and no ``policy.encoder``.  The conv + GRU policy
+    records one ``policy.heads`` (``heads`` 2) around one ``policy.encoder``
+    each rollout step and each minibatch, one more ``policy.encoder`` in
+    each ``ppo.adapt`` and one for the last values; so 2 x (1 + 1) W1
+    spans a minibatch (``policy.conv_wgrad``: both convs, in the loss's
+    and the adaptation substep's backward)."""
+    from legged_tracking_torch.learn.actor_critic_cnn import ACCnnArgs, ActorCriticCNN
+    from legged_tracking_torch.learn.ppo import PPO
+
+    alg, (ts, state, obs) = short_train
+    if policy == "conv_gru":
+        env = alg.env
+        torch.manual_seed(0)
+        ac = ActorCriticCNN(env.num_obs, env.num_privileged_obs, env.num_obs_history,
+                            env.num_actions,
+                            ACCnnArgs(actor_hidden_dims=(32,), critic_hidden_dims=(32,),
+                                      adaptation_module_branch_hidden_dims=(32,),
+                                      use_cnn=True, use_gru=True, height_map_shape=(2, 10, 11),
+                                      cnn_num_embedding=16, gru_num_embedding=16))
+        alg = PPO(env, args=alg.args, ac=ac, seed=0)
+        ts = alg.init()
+    profiled(lambda: alg.train_iteration(ts, state, obs))
+    spans = tracing.record()
+    where = collections.Counter(
+        (s.name, "ppo.adapt" if "ppo.adapt" in up else "ppo.minibatch" if "ppo.minibatch" in up
+         else "ppo.act" if "ppo.act" in up else "other")
+        for s in spans for up in [ancestors(spans, s)])
+    minibatches = EPOCHS * MINIBATCHES
+    if policy == "cse":
+        assert not any(name.startswith("policy.") for name, _ in where), where
+        return
+    heads = [s for s in spans if s.name == "policy.heads"]
+    assert all(s.counters == {"heads": 2} for s in heads)
+    assert all(spans[s.parent].name == "policy.heads" for s in spans
+               if s.name == "policy.encoder" and "policy.heads" in ancestors(spans, s))
+    assert where == {
+        ("policy.heads", "ppo.act"): STEPS, ("policy.encoder", "ppo.act"): STEPS,
+        ("policy.gru", "ppo.act"): STEPS,
+        ("policy.heads", "ppo.minibatch"): minibatches,
+        ("policy.encoder", "ppo.minibatch"): minibatches,
+        ("policy.gru", "ppo.minibatch"): minibatches,
+        ("policy.encoder", "ppo.adapt"): minibatches, ("policy.gru", "ppo.adapt"): minibatches,
+        ("policy.conv_wgrad", "ppo.minibatch"): 2 * minibatches,
+        ("policy.conv_wgrad", "ppo.adapt"): 2 * minibatches,
+        ("policy.encoder", "other"): 1, ("policy.gru", "other"): 1,
+        **{k: n for k, n in where.items() if not k[0].startswith("policy.")}}, where

@@ -323,3 +323,20 @@ def params_errors(got, want, start):
                                 / np.mean(flat_abs_err(x0, y) ** 2))) for x, y, x0 in leaves)
     return {"leaf_rms_rel": rms_rel,
             "frac_over_1e-4": float(np.mean(flat_abs_err(got, want) > 1e-4))}
+
+
+# ------------------------------------------------------------ policy heads
+def heads_both_ways(ac, o, p, h):
+    """A policy's heads as ``action_dist`` then ``evaluate``, and as
+    ``action_dist_and_value``, on the same inputs: for each way its (mean,
+    std, value) and the gradients of one loss over all three, by parameter
+    name."""
+    names, params = zip(*ac.named_parameters())
+
+    def run(heads):
+        out = mean, std, value = heads()
+        loss = mean.square().mean() + torch.log(std).sum() + value.square().mean()
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        return [x.detach() for x in out], dict(zip(names, grads))
+    return (run(lambda: (*ac.action_dist(o, p, h), ac.evaluate(o, p, h))),
+            run(lambda: ac.action_dist_and_value(o, p, h)))

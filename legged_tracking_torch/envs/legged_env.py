@@ -339,8 +339,11 @@ class LeggedEnv:
             mixed = ct.cl_start_target_dist + u * torch.clamp(
                 dist_i - ct.cl_start_target_dist, min=0.0)
             dist_i = torch.where(self.env_ids() < n_mix, mixed, dist_i)
-        traj = self._traj_fn(lambda *a, **k: self.draw(*a, **k), tag + (14,), base_pos, cfg,
-                             self.terrain, dist_i[:, None])
+        with tracing.span("env.trajectory") as span:
+            span.add("envs", N)
+            span.add("waypoints", cfg.commands.traj_length)
+            traj = self._traj_fn(lambda *a, **k: self.draw(*a, **k), tag + (14,), base_pos, cfg,
+                                 self.terrain, dist_i[:, None])
 
         act = actuators.init_actuator_state(cfg.domain_rand.lag_timesteps, N, device=dev)
         return phys, act, traj

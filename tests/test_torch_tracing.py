@@ -26,8 +26,8 @@ STEPS, EPOCHS, MINIBATCHES = 2, 1, 2
 # (span, its parent) of a train iteration
 PARENTS = {"ppo.act": "ppo.rollout", "env.step": "ppo.rollout", "env.physics": "env.step",
            "env.rewards": "env.step", "env.reset": "env.step", "env.observe": "env.step",
-           "env.scan": "env.observe", "ppo.minibatch": "ppo.update",
-           "ppo.adapt": "ppo.minibatch"}
+           "env.trajectory": "env.reset", "env.scan": "env.observe",
+           "ppo.minibatch": "ppo.update", "ppo.adapt": "ppo.minibatch"}
 
 
 def profiled(fn):
@@ -67,14 +67,14 @@ def test_off_reads_no_clock_and_records_nothing(short_train, monkeypatch):
 
 
 def test_profiled_iteration_records_each_layer(short_train):
-    """Under the profiler: T act, step, physics, rewards, reset and observe
-    spans, epochs x minibatches minibatch spans, each span inside its
+    """Under the profiler: T act, step, physics, rewards, reset, trajectory
+    and observe spans, epochs x minibatches minibatch spans, each span inside its
     parent, and no sync counted off CUDA."""
     profiled(lambda: iterate(short_train))
     spans = tracing.record()
     counts = collections.Counter(s.name for s in spans)
     for name in ("ppo.act", "env.step", "env.physics", "env.rewards", "env.reset",
-                 "env.observe", "env.scan"):
+                 "env.trajectory", "env.observe", "env.scan"):
         assert counts[name] == STEPS, counts
     assert counts["ppo.minibatch"] == counts["ppo.adapt"] == EPOCHS * MINIBATCHES
     assert counts["ppo.rollout"] == counts["ppo.gae"] == counts["ppo.update"] == 1
@@ -284,3 +284,34 @@ def test_heads_share_one_history_pass(short_train, policy):
         ("policy.conv_wgrad", "ppo.adapt"): 2 * minibatches,
         ("policy.encoder", "other"): 1, ("policy.gru", "other"): 1,
         **{k: n for k, n in where.items() if not k[0].startswith("policy.")}}, where
+
+
+def test_goal_env_records_one_trajectory_draw_a_step():
+    """The goal recipe's env (``valid_goal``) at 4 envs on 2 x 2 tiles,
+    stepped twice under the profiler: one ``env.trajectory`` span a step,
+    inside that step's ``env.reset``, with ``envs`` 4 and ``waypoints`` 1;
+    stepped with the profiler off, nothing recorded."""
+    from legged_tracking_torch import train
+    from legged_tracking_torch.envs import LeggedEnv
+
+    cfg = train.build_cfg(train.parse_args(torch_support.GOAL_FLAGS + ["--num_envs", "4"]))
+    env = LeggedEnv(cfg, device="cpu")
+    state = env.reset_fn(True)
+    actions = torch.zeros(env.num_envs, env.num_actions)
+
+    def steps(state):
+        for _ in range(STEPS):
+            state, _ = env.step_fn(state, actions)
+        return state
+
+    state, _ = profiled(lambda: steps(state))
+    spans = tracing.record()
+    draws = [s for s in spans if s.name == "env.trajectory"]
+    assert len(draws) == STEPS == sum(s.name == "env.step" for s in spans)
+    for s in draws:
+        assert spans[s.parent].name == "env.reset"
+        assert s.counters == {"envs": 4, "waypoints": 1}
+    before = tracing.record()
+    n = len(before)
+    steps(state)
+    assert tracing.record() is before and len(before) == n
